@@ -1,0 +1,149 @@
+"""Shared helpers for the tvc_ai_torch parity tests, and their own checks.
+
+The port takes its random numbers as explicit tensors; these helpers replay
+the JAX package's per-env key chain to produce exactly the draws a JAX call
+consumes, so both packages can be fed the same numbers:
+
+- reset: ``rocket_env.py`` splits the key into (k_dr, k_init, k_noise,
+  k_next) with sensor noise on (three keys without); the domain draw splits
+  k_dr into (ku, kn) for uniform(7) and normal(3); k_init gives the
+  uniform(7) initial-state draw; k_noise the normal(7) IMU noise;
+- step: ``_pre_physics`` splits the carried key into (key, k_noise) when
+  sensor noise is on; ``_finish_autoreset`` splits ``key`` into
+  (k_reset, k_carry) and resets from k_reset.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tvc_ai_torch.convert import env_params_from_numpy
+from tvc_ai_torch.env import rocket_env as t_env
+from tvc_ai_torch.env.rocket_env import ResetDraws
+from tvc_ai_tpu.env import rocket_env as j_env
+from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig
+
+torch.set_num_threads(1)
+
+
+def _reset_draws_one(key, params):
+    rnd = params.randomization
+    if rnd.sensor_noise_enabled:
+        k_dr, k_init, k_noise, _ = jax.random.split(key, 4)
+    else:
+        k_dr, k_init, _ = jax.random.split(key, 3)
+    out = {"u_init": jax.random.uniform(k_init, (7,), minval=-1.0, maxval=1.0)}
+    if rnd.enabled or rnd.sensor_noise_uniform or rnd.progress_rate_randomized:
+        ku, kn = jax.random.split(k_dr)
+        out["u_dr"] = jax.random.uniform(ku, (7,), minval=-1.0, maxval=1.0)
+        if rnd.enabled:
+            out["n_dr"] = jax.random.normal(kn, (3,))
+    if rnd.sensor_noise_enabled:
+        out["n_imu"] = jax.random.normal(k_noise, (7,))
+    return out
+
+
+def _step_draws_one(key, params):
+    out = {}
+    if params.randomization.sensor_noise_enabled:
+        key, k_noise = jax.random.split(key)
+        out["n_imu"] = jax.random.normal(k_noise, (7,))
+    k_reset, _ = jax.random.split(key)
+    out["reset"] = _reset_draws_one(k_reset, params)
+    return out
+
+
+def to_reset_draws(d: dict) -> ResetDraws:
+    return ResetDraws(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+
+
+class KeyChain:
+    """Jitted replays of the JAX draws for one parameterization."""
+
+    def __init__(self, params: EnvParams):
+        self._reset = jax.jit(jax.vmap(lambda k: _reset_draws_one(k, params)))
+        self._step = jax.jit(jax.vmap(lambda k: _step_draws_one(k, params)))
+
+    def reset(self, keys) -> ResetDraws:
+        """Draws of ``vmap(reset)(keys, params)``."""
+        return to_reset_draws(self._reset(keys))
+
+    def step(self, state_keys) -> tuple[torch.Tensor | None, ResetDraws]:
+        """(n_imu, autoreset draws) that the next ``step_autoreset`` of states
+        carrying ``state_keys`` consumes."""
+        d = self._step(state_keys)
+        n_imu = torch.from_numpy(np.array(d["n_imu"])) if "n_imu" in d else None
+        return n_imu, to_reset_draws(d["reset"])
+
+
+def np_tree(x):
+    return jax.tree.map(np.asarray, x)
+
+
+def assert_state_close(t_state, j_state, atol=5e-5, rtol=5e-4, what=""):
+    """Every field of a port EnvState against a JAX EnvState."""
+    j = np_tree(j_state)
+    for name in ("pos", "quat", "vel", "omega"):
+        np.testing.assert_allclose(
+            getattr(t_state.body, name).numpy(), getattr(j.body, name),
+            atol=atol, rtol=rtol, err_msg=f"{what} body.{name}",
+        )
+    for name in ("mass", "thrust_scale", "cg_offset", "wind", "sensor_noise_std",
+                 "progress_rate"):
+        np.testing.assert_allclose(
+            getattr(t_state.dr, name).numpy(), getattr(j.dr, name),
+            atol=1e-6, rtol=1e-6, err_msg=f"{what} dr.{name}",
+        )
+    for name in ("fuel", "prev_action", "trim"):
+        np.testing.assert_allclose(
+            getattr(t_state, name).numpy(), getattr(j, name),
+            atol=atol, rtol=rtol, err_msg=f"{what} {name}",
+        )
+    np.testing.assert_allclose(
+        t_state.reward_window.numpy(), j.reward_window, atol=1e-3, rtol=1e-3,
+        err_msg=f"{what} reward_window",
+    )
+    for name in ("step_count", "phase", "mission_success", "success_count",
+                 "has_prev_action", "reward_window_len"):
+        np.testing.assert_array_equal(
+            getattr(t_state, name).numpy(), getattr(j, name), err_msg=f"{what} {name}"
+        )
+
+
+RESET_CASES = {
+    "dr_noise": dict(enabled=True, sensor_noise_enabled=True),
+    "dr_noise_init": dict(enabled=True, sensor_noise_enabled=True,
+                          init_tilt_max=0.2, init_omega_max=0.3, init_pos_jitter=0.1),
+    "nominal": dict(),
+    "noise_uniform_progress": dict(sensor_noise_enabled=True, sensor_noise_uniform=True,
+                                   progress_rate_randomized=True,
+                                   progress_rate_min=0.5, progress_rate_max=2.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESET_CASES))
+def test_reset_replayed_draws_match_jax(case):
+    """The replayed draws reproduce JAX's reset exactly (obs and every field)."""
+    jp = EnvParams(randomization=RandomizationConfig(**RESET_CASES[case]))
+    tp = env_params_from_numpy(jp)
+    n = 32
+    keys = jax.random.split(jax.random.PRNGKey(3), n)
+    j_state, j_obs = jax.vmap(j_env.reset, in_axes=(0, None))(keys, jp)
+    t_state, t_obs = t_env.reset(tp, n, device="cpu", draws=KeyChain(jp).reset(keys))
+    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), atol=5e-6, rtol=5e-6)
+    assert_state_close(t_state, j_state, atol=5e-6, rtol=5e-6, what=case)
+
+
+def test_env_params_round_trip():
+    jp = EnvParams(randomization=RandomizationConfig(enabled=True, wind_max=jnp.float32(2.5)),
+                   max_episode_steps=8, trim_obs_enabled=True)
+    tp = env_params_from_numpy(jp)
+    assert tp.max_episode_steps == 8 and tp.trim_obs_enabled
+    assert tp.randomization.enabled and tp.randomization.wind_max == 2.5
+    assert tp.rocket.thrust_offset == (0.0, 0.0, -0.5)
+    assert tp.init_pos == (0.0, 0.0, 1.0)
+    assert tp.rocket.substeps == 4 and tp.rocket.double_gravity is True

@@ -1,0 +1,30 @@
+"""Device resolution: explicit, CUDA by default, no silent CPU fallback.
+
+Counterpart of ``tvc_ai_tpu/utils/devices.py``. Every entry point of the port
+takes ``device=`` (default ``"cuda"``) and passes it through
+``resolve_device``, which raises when CUDA is asked for and absent. The CPU is
+used only when the caller names it (the parity tests do).
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
+    """The ``torch.device`` for ``device``; raises if it is CUDA and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def set_parity_precision() -> None:
+    """Full-float32 matmuls and convolutions (TF32 off), for parity runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
