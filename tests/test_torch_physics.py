@@ -4,10 +4,17 @@ The port's plain integrator (K1's plain version) is held against
 ``jax.vmap(integrator.step)`` and against the Pallas kernel run in interpret
 mode, at the bars of ``tests/test_pallas_step.py``: atol 2e-5 / rtol 2e-4 in
 flight, 5e-5 / 5e-4 in ground contact. K1 itself runs only on the card; its
-wrapper's CPU route (the plain version) and its input checks are covered here.
+wrapper's CPU route (the plain version), its input checks and its launch path
+(the packed parameters, the argument order against the CUDA source, the
+output buffer's layout, the alignment of what the env path hands it) are
+covered here.
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from tvc_ai_torch.env import rocket_env as t_env
+from tvc_ai_torch.env import types as t_types
+from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.ops.step_kernel import step_kernel
 from tvc_ai_torch.physics import integrator as t_int
 from tvc_ai_torch.physics import quaternion as t_quat
@@ -180,7 +190,7 @@ def test_step_kernel_cpu_route_is_the_plain_version():
     assert step_kernel.launches == before  # the counter counts kernel launches only
 
 
-@pytest.mark.parametrize("fault", ["float64", "shape", "noncontiguous", "opt_in"])
+@pytest.mark.parametrize("fault", ["float64", "shape", "noncontiguous", "opt_in", "misaligned"])
 def test_step_kernel_rejects_bad_input(fault):
     b = random_batch(17, 8)
     state, ctrl, (m, t, c, w) = torch_args(b)
@@ -193,7 +203,116 @@ def test_step_kernel_rejects_bad_input(fault):
     elif fault == "noncontiguous":
         w = torch.from_numpy(np.asfortranarray(b["wind"]))
         assert not w.is_contiguous()
+    elif fault == "misaligned":
+        # a contiguous view one float into its storage
+        m = torch.cat([torch.zeros(1), m])[1:]
+        assert m.is_contiguous() and m.data_ptr() % 16 == 4
     else:
         params = TParams(gyroscopic=True)
-    with pytest.raises(err):
+    with pytest.raises(err, match="aligned" if fault == "misaligned" else None):
         step_kernel(state, ctrl, params, m, t, c, w)
+
+
+# ------------------------------------------------------------- K1 launch path
+
+CU_SOURCE = Path(k1.SOURCE).read_text()
+CTYPES_OF_C = {"float": ctypes.c_float, "int": ctypes.c_int}
+
+
+def test_step_params_mirror_the_cuda_struct():
+    """The ctypes structure has the CUDA struct's fields, types and order."""
+    body = re.search(r"struct StepParams \{(.*?)\};", CU_SOURCE, re.S).group(1)
+    fields = []
+    for ctype, names in re.findall(r"(float|int)\s+([^;]+);", body):
+        fields += [(name.strip(), CTYPES_OF_C[ctype]) for name in names.split(",")]
+    assert [(n, t) for n, t in k1.StepParams._fields_] == fields
+
+
+def test_pack_params_fills_every_field_in_order():
+    """A RocketParams with a distinct value in every field the kernel reads
+    lands in StepParams field by field, in order."""
+    params = TParams(
+        thrust=31.0, gravity=9.5, double_gravity=True, drag_coeff=0.41, rho0=1.19,
+        atmosphere_scale_height=8300.0, aero_angular_damping=0.031, drag_min_speed=0.17,
+        linear_damping=0.013, angular_damping=0.027, dt=0.021, contact_stiffness=4100.0,
+        contact_damping=61.0, contact_friction=0.83, radius=0.057, length=1.07,
+        thrust_offset=(0.011, -0.023, -0.47), substeps=5,
+    )
+    want = [31.0, 9.5, 1.0, 0.41, 1.19, 8300.0, 0.031, 0.17, 0.013, 0.027, 0.021,
+            4100.0, 61.0, 0.83, 0.057, 1.07, 0.011, -0.023, -0.47, 5]
+    assert len(set(want)) == len(want) == len(k1.StepParams._fields_)
+    packed = k1.pack_params(params)
+    got = [getattr(packed, name) for name, _ in k1.StepParams._fields_]
+    np.testing.assert_array_equal(np.float32(got[:-1]), np.float32(want[:-1]))
+    assert got[-1] == want[-1]
+    assert k1.pack_params(TParams(**{**vars(params)})) is packed  # cached on the values
+    off = k1.pack_params(TParams(double_gravity=False))
+    assert off.double_g == 0.0
+
+
+def test_entry_argtypes_follow_the_cuda_signatures():
+    """The ctypes argument list of each C entry point matches its signature in
+    the CUDA source: one pointer per tensor in INPUTS order then the outputs,
+    StepParams by value, n, the stream."""
+    c_types = {"float*": ctypes.c_void_p, "unsigned char*": ctypes.c_void_p,
+               "void*": ctypes.c_void_p, "int*": ctypes.c_void_p, "int": ctypes.c_int,
+               "StepParams": k1.StepParams}
+    for name, argtypes in k1.ENTRY_ARGTYPES.items():
+        sig = re.search(rf'extern "C" int {name}\((.*?)\)', CU_SOURCE, re.S).group(1)
+        params = [re.sub(r"\s*\*\s*", "* ", p.strip().removeprefix("const ")).rsplit(" ", 1)
+                  for p in sig.split(",")]
+        assert [c_types[t.strip()] for t, _ in params] == argtypes, name
+    kernel = re.search(r'extern "C" int tvc_step_kernel\((.*?)\)', CU_SOURCE, re.S).group(1)
+    names = [p.strip().rsplit(" ", 1)[-1].lstrip("*") for p in kernel.split(",")]
+    inputs = [n for n, _, _ in k1.INPUTS]
+    renamed = {"thrust_active": "active", "cg_offset": "cg"}
+    assert names[:len(inputs)] == [renamed.get(n, n) for n in inputs]
+    assert names[len(inputs):len(inputs) + 4] == ["pos_out", "quat_out", "vel_out", "omega_out"]
+
+
+def test_check_inputs_returns_pointers_in_kernel_order():
+    state, ctrl, dr = torch_args(random_batch(19, 24))
+    ptrs = k1.check_inputs(state, ctrl, *dr)
+    tensors = (state.pos, state.quat, state.vel, state.omega, *ctrl, *dr)
+    assert ptrs == [t.data_ptr() for t in tensors]
+
+
+@pytest.mark.parametrize("n", [1, 4096, 4099])
+def test_output_spans_are_disjoint_and_aligned(n):
+    out = k1.alloc_outputs(n, torch.device("cpu"))
+    views = (out.pos, out.quat, out.vel, out.omega)
+    spans = []
+    for view, k in zip(views, (3, 4, 3, 3)):
+        assert view.shape == (n, k) and view.dtype == torch.float32
+        assert view.is_contiguous()
+        assert view.data_ptr() % 16 == 0
+        spans.append((view.data_ptr(), view.data_ptr() + view.numel() * 4))
+    assert len({v.untyped_storage().data_ptr() for v in views}) == 1  # one allocation
+    spans.sort()
+    assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+
+
+def test_env_path_hands_k1_aligned_tensors(monkeypatch):
+    """batched_step_autoreset over 12 steps with autoresets at N = 37: every
+    tensor that reaches K1's wrapper passes its checks, alignment included."""
+    seen = []
+
+    def spy(state, control, params, mass, thrust_scale, cg_offset, wind):
+        seen.append((state.pos, state.quat, state.vel, state.omega, *control,
+                     mass, thrust_scale, cg_offset, wind))
+        return step_kernel(state, control, params, mass, thrust_scale, cg_offset, wind)
+
+    monkeypatch.setattr(t_env, "step_kernel", spy)
+    params = t_types.EnvParams(
+        randomization=t_types.RandomizationConfig(enabled=True, sensor_noise_enabled=True),
+        max_episode_steps=5,
+    )
+    gen = torch.Generator().manual_seed(3)
+    states, _ = t_env.reset(params, 37, device="cpu", generator=gen)
+    dones = 0
+    for _ in range(12):
+        actions = torch.rand((37, 2), generator=gen) * 2.0 - 1.0
+        states, out, _ = t_env.batched_step_autoreset(states, actions, params, generator=gen)
+        dones += int((out.terminated | out.truncated).sum())
+    assert len(seen) == 12 and dones >= 37
+    assert all(t.data_ptr() % 16 == 0 for call in seen for t in call)
