@@ -8,12 +8,16 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 It builds the hand-written kernel (K1, ``tvc_ai_torch/csrc/step_kernel.cu``)
 from the sources, holds it against its plain PyTorch version on the card,
 holds the port on the card against the port on the CPU, drives the env path
-(4096 envs, full domain randomization and sensor noise, random actions) and
-the slice's main path (``training.loop.collect``: a seeded 256x256
-``GaussianActor`` with the safety layer flying 4096 envs), checks through
-the launch counter that both went through K1, profiles the main path once
+(4096 envs, full domain randomization and sensor noise, random actions),
+the rollout path (``training.loop.collect``: a seeded 256x256
+``GaussianActor`` with the safety layer flying 4096 envs) and the main path,
+the fused SAC train iteration (``training.loop.make_train_iteration`` at the
+default configuration: 4096 envs, 128 steps, a 256x256 actor and twin
+critics, batch 256, a replay of ~1M rows), checks through the launch counter
+that each went through K1, profiles the rollout and the train iteration
 with ``torch.profiler`` (device busy time and idle share of a step, and the
-kernels that take the most device time), and times K1 with CUDA events.
+kernels that take the most device time), and times K1, one SAC update and
+one replay write + sample with CUDA events.
 
 Phase [6] reads: K1 as built (envs per block, registers, local memory per
 thread); K1's device time at 4096 envs beside its plain version, its bound
@@ -29,9 +33,19 @@ checkout's K1, built from its own sources, to phase [6]: held once against
 the plain version, then timed in turns with this one (A B .. B A) at every
 N, host cost included. It imports nothing of JAX or of ``tvc_ai_tpu``.
 
+Phase [7] holds the learner on the card against the port on the CPU (256
+envs, 16 steps with updates, the same draws and initial state); phase [8]
+runs the train iteration at full width (one warm-up, two timed iterations,
+one more under ``torch.cuda.set_sync_debug_mode("error")``, which fails on
+any host-device synchronisation) and prints train env steps/s with learning
+on; phase [8b] profiles 16 steps of it and times one ``sac.update`` and one
+replay ``add_batch`` + ``sample`` (device ms by CUDA events, host ms per
+call).
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
-them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms`` and ``host_us``
-beside the contract's keys); and, as the last line, ``{"ok": true,
+them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us`` and
+the launches of each path beside the contract's keys; ``launches`` is the
+train iteration's); and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code not 0, no result line); so
 does a host without CUDA.
 """
@@ -43,6 +57,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,20 +67,31 @@ from pathlib import Path
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
 
-from tvc_ai_torch.agents import sac
+from tvc_ai_torch.agents import replay, sac
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.physics import integrator
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
-from tvc_ai_torch.training.loop import StepDraws, collect
+from tvc_ai_torch.training import loop
+from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
 from tvc_ai_torch.utils.devices import set_parity_precision
 
 N_ENVS = 4096
 ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 8   # the shape of bench.py
 ROLLOUT_STEPS = 128
 PROFILE_STEPS = 32
+TRAIN_PROFILE_STEPS = 16
+# the default training run, tvc_ai_tpu/config/default.yaml:29-46 (algorithms.sac)
+# and :189-197 (training); chip_smoke reads no YAML
+DEFAULT_SAC = dict(hidden_dims=(256, 256), lr_actor=5e-5, lr_critic=1.5e-4, lr_alpha=3e-4,
+                   buffer_size=1_000_000, learning_starts=1000, batch_size=256, tau=0.005,
+                   gamma=0.99, gradient_clip_norm=5.0, reward_scale=0.05)  # ent_coef: auto
+DEFAULT_LOOP = dict(num_envs=4096, rollout_steps=128, updates_per_step=1, update_interval=1,
+                    use_safety_layer=True)
+PARAMS = dict(atol=1e-4, rtol=0.0)     # learner card vs CPU: every parameter after 16 steps
+METRICS = dict(atol=1e-5, rtol=1e-3)   # the iteration's mean metrics (atol for those near 0)
 SWEEP = (4096, 16384, 65536, 262144)   # K1's N sweep in phase [6]
 HOST_RUNS = 21   # rounds of A B .. B A for the host's cost of a K1 call
 HIDDEN = (256, 256)
@@ -212,6 +238,46 @@ def random_physics_batch(n: int, gen: torch.Generator, dev, ground: bool = False
     return state, ctrl, dr
 
 
+def device_breakdown(prof, steps: int, step_ms: float, tag: str, what: str) -> dict:
+    """From a ``torch.profiler`` run of ``steps`` steps: the device's busy
+    time per step (the union of its kernel and copy intervals), its idle
+    share of ``step_ms``, device operations per step, K1's device time and
+    the 15 kernels that take the most device time, logged under ``tag``.
+    Returns the device milliseconds per step by kernel name."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, _ in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms = busy_us / 1e3 / steps
+    by_name: dict[str, list[float]] = {}
+    for start, end, name in spans:
+        by_name.setdefault(name, []).append((end - start) / 1e3)
+    log(f"{tag} {what}: step {step_ms:.4f} ms on the host clock; device busy {busy_ms:.4f} ms "
+        f"per step, idle {1.0 - busy_ms / step_ms:.2%} of the step; {len(spans) / steps:.1f} "
+        f"device operations per step; K1 "
+        f"{sum(sum(d) for n, d in by_name.items() if 'step_kernel' in n) / steps:.5f} "
+        f"ms per step")
+    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
+        log(f"{tag} {sum(durs) / steps:9.5f} ms/step {len(durs) / steps:6.1f}x {name[:90]}")
+    return {name: sum(durs) / steps for name, durs in by_name.items()}
+
+
+def to_device(d, where):
+    """A copy of draws (a dataclass of tensors, nested, or None) on ``where``."""
+    if d is None:
+        return None
+    if isinstance(d, torch.Tensor):
+        return d.to(where)
+    if isinstance(d, (list, tuple)):
+        return [to_device(x, where) for x in d]
+    return type(d)(**{f.name: to_device(getattr(d, f.name), where)
+                      for f in dataclasses.fields(d)})
+
+
 def max_abs_diff(a: RigidBodyState, b: RigidBodyState) -> float:
     return max(float((getattr(a, f) - getattr(b, f)).abs().max())
                for f in ("pos", "quat", "vel", "omega"))
@@ -235,6 +301,14 @@ def main() -> int:
     log(f"[1] nvidia-smi: {smi}")
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+
+    # the config and trainer slice reads YAML: record whether this machine can
+    try:
+        import yaml
+        yaml_status = f"importable (PyYAML {yaml.__version__})"
+    except ImportError as exc:
+        yaml_status = f"not importable ({exc})"
+    log(f"[1] PyYAML: {yaml_status}")
 
     # ---- 2. build K1 from the checkout's sources
     t0 = time.perf_counter()
@@ -287,14 +361,10 @@ def main() -> int:
     ]
     runs = {}
     for where in ("cpu", "cuda"):
-        to = lambda t: None if t is None else t.to(where)  # noqa: E731
-        rd = rocket_env.ResetDraws(**{k: to(v) for k, v in vars(reset_draws).items()})
-        dd = [StepDraws(to(d.n_act), to(d.n_imu),
-                        rocket_env.ResetDraws(**{k: to(v) for k, v in vars(d.reset).items()}))
-              for d in draws]
-        states, obs = rocket_env.reset(short, small, device=where, draws=rd)
+        states, obs = rocket_env.reset(short, small, device=where,
+                                       draws=to_device(reset_draws, where))
         actor = sac.make_actor(n_obs, 2, sac.SACConfig(HIDDEN), device=where, seed=SEED)
-        runs[where] = collect(actor, states, obs, short, steps, draws=dd)
+        runs[where] = collect(actor, states, obs, short, steps, draws=to_device(draws, where))
     torch.cuda.synchronize()
     a, b = runs["cuda"], runs["cpu"]
     torch.testing.assert_close(a.reward.cpu(), b.reward, **REWARD)
@@ -370,30 +440,11 @@ def main() -> int:
         collect(actor, ro.states, ro.obs, env_params, PROFILE_STEPS, generator=gen)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    busy_us, reach = 0.0, float("-inf")
-    for start, end, _ in spans:
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    busy_ms = busy_us / 1e3 / PROFILE_STEPS
-    by_name: dict[str, list[float]] = {}
-    for start, end, name in spans:
-        by_name.setdefault(name, []).append((end - start) / 1e3)
-    log(f"[5b] profiled collect, {N_ENVS} envs x {PROFILE_STEPS} steps: step {prof_ms:.4f} ms "
-        f"on the host clock; device busy {busy_ms:.4f} ms per step, idle "
-        f"{1.0 - busy_ms / prof_ms:.2%} of the step; {len(spans) / PROFILE_STEPS:.1f} "
-        f"device operations per step; K1 "
-        f"{sum(sum(d) for n, d in by_name.items() if 'step_kernel' in n) / PROFILE_STEPS:.5f} "
-        f"ms per step")
-    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
-        log(f"[5b] {sum(durs) / PROFILE_STEPS:9.5f} ms/step {len(durs) / PROFILE_STEPS:6.1f}x "
-            f"{name[:90]}")
+    device_breakdown(prof, PROFILE_STEPS, prof_ms, "[5b]",
+                     f"profiled collect, {N_ENVS} envs x {PROFILE_STEPS} steps")
     # the trace's ~1e5 event objects would make every later garbage collection
     # slow, and with it the host time [6] measures
-    del prof, spans, by_name
+    del prof
     gc.collect()
 
     # ---- 6. K1 at N envs beside its launch floor (an empty kernel on its
@@ -471,13 +522,182 @@ def main() -> int:
         log(f"[6] K1 n={n} {what}: max |K1 - plain| = {errs[-1]:.3e} "
             f"(atol {tol['atol']}, rtol {tol['rtol']}) ok")
 
+    # ---- 7. the learner on the card (K1) against the port on the CPU (plain
+    # version): the same initial state and draws, 16 steps, updates from step 4
+    short_sac = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * small,
+                                     learning_starts=4 * small))
+    short_loop = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=small, rollout_steps=steps),
+                                      obs_dim=n_obs)
+    cpu_gen = torch.Generator().manual_seed(SEED + 5)
+    reset_draws = rocket_env.draw_reset(short, small, torch.device("cpu"), cpu_gen)
+    iter_draws = []
+    for t in range(steps):
+        size = (t + 1) * small
+        iter_draws.append(IterDraws(
+            step=StepDraws(
+                n_act=torch.randn((small, 2), generator=cpu_gen),
+                n_imu=torch.randn((small, 7), generator=cpu_gen),
+                reset=rocket_env.draw_reset(short, small, torch.device("cpu"), cpu_gen),
+            ),
+            samples=[SampleDraws(
+                idx=torch.randint(0, size, (short_sac.batch_size,), generator=cpu_gen),
+                update=sac.UpdateDraws(
+                    n_next=torch.randn((short_sac.batch_size, 2), generator=cpu_gen),
+                    n_pi=torch.randn((short_sac.batch_size, 2), generator=cpu_gen),
+                ),
+            )] if size >= short_sac.learning_starts else [],
+        ))
+    learned = {}
+    for where in ("cpu", "cuda"):
+        carry = loop.init_carry(short, short_sac, short_loop, device=where, seed=SEED,
+                                reset_draws=to_device(reset_draws, where))
+        it = loop.make_train_iteration(short_sac, short_loop)
+        learned[where] = it(carry, short, to_device(iter_draws, where))
+    torch.cuda.synchronize()
+    (a, am), (b, bm) = learned["cuda"], learned["cpu"]
+    n_updates = sum(1 for d in iter_draws if d.samples)
+    assert a.agent.step == b.agent.step == n_updates > 0, (a.agent.step, b.agent.step)
+    torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
+    for k in ("obs", "next_obs", "action"):
+        torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+    torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"], **REWARD)
+    assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated differs"
+    for name in ("episodes", "ep_length", "ep_ring_seq", "ep_ring_ptr"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
+    assert torch.equal(a.env_states.step_count.cpu(), b.env_states.step_count), "truncation"
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    param_err = 0.0
+    for net in ("actor", "critic", "target_critic"):
+        for (name, p), q in zip(getattr(a.agent, net).named_parameters(),
+                                getattr(b.agent, net).parameters()):
+            torch.testing.assert_close(p.detach().cpu(), q.detach(), **PARAMS, msg=f"{net}.{name}")
+            param_err = max(param_err, float((p.detach().cpu() - q.detach()).abs().max()))
+    torch.testing.assert_close(a.agent.log_alpha.cpu(), b.agent.log_alpha, **PARAMS)
+    n_done = int(b.episodes.sum())
+    assert n_done >= small, "no autoreset fired in the learner check"
+    log(f"[7] train iteration {small} envs x {steps} steps, {n_updates} updates, card (K1) vs "
+        f"CPU (plain): max |d obs| {float((a.obs.cpu() - b.obs).abs().max()):.3e}, max |d "
+        f"replay reward| "
+        f"{float((a.buffer.data['reward'].cpu() - b.buffer.data['reward']).abs().max()):.3e}, "
+        f"terminations and episode ends equal ({n_done} episode ends), max |d param| "
+        f"{param_err:.3e} (atol {PARAMS['atol']}), critic_loss {float(am['critic_loss']):.6g} "
+        f"vs {float(bm['critic_loss']):.6g}: ok")
+    del learned, a, b, am, bm, iter_draws
+
+    # ---- 8. the main path: the fused train iteration at the default
+    # configuration, K1 for the physics, learning on from the first step
+    train_sac = sac.SACConfig(**DEFAULT_SAC)
+    train_loop = loop.TrainLoopConfig(**DEFAULT_LOOP, obs_dim=n_obs)
+    steps_per_iter = train_loop.rollout_steps
+    carry = loop.init_carry(env_params, train_sac, train_loop, device=dev, seed=SEED + 6)
+    capacity = carry.buffer.capacity
+    train_it = loop.make_train_iteration(train_sac, train_loop)
+    t0 = time.perf_counter()
+    carry, metrics = train_it(carry, env_params)   # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert carry.buffer.size == steps_per_iter * N_ENVS, carry.buffer.size
+    assert carry.agent.step == steps_per_iter, carry.agent.step
+    k1.step_kernel.launches = 0
+    iter_s = []
+    for i in range(2):
+        step0 = carry.agent.step
+        t0 = time.perf_counter()
+        carry, metrics = train_it(carry, env_params)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        assert carry.agent.step - step0 == steps_per_iter, carry.agent.step - step0
+        if i == 0:   # the ring has wrapped
+            assert (carry.buffer.size, carry.buffer.ptr) == (
+                capacity, 2 * steps_per_iter * N_ENVS - capacity), (carry.buffer.size,
+                                                                  carry.buffer.ptr)
+    train_launches = k1.step_kernel.launches
+    assert train_launches == 2 * steps_per_iter, (train_launches, 2 * steps_per_iter)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        carry, metrics = train_it(carry, env_params)
+        sync_free_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    agent = carry.agent
+    params_finite = all(bool(torch.isfinite(p).all()) for net in (agent.actor, agent.critic,
+                                                                  agent.target_critic)
+                        for p in net.parameters())
+    losses = {k: float(v) for k, v in metrics.items()}
+    assert params_finite and all(map(math.isfinite, losses.values())), losses
+    assert losses["alpha"] > 0.0, losses
+    assert any(not torch.equal(p, q) for p, q in zip(agent.critic.parameters(),
+                                                     agent.target_critic.parameters()))
+    updates_per_s = len(iter_s) * steps_per_iter * train_loop.updates_per_step / sum(iter_s)
+    log(f"[8] train iteration (default config): {N_ENVS} envs x {steps_per_iter} steps, "
+        f"{train_loop.updates_per_step} update per step at batch {train_sac.batch_size}, replay "
+        f"capacity {capacity} ({sum(t.numel() * t.element_size() for t in carry.buffer.data.values()) / 1e6:.1f} MB); "
+        f"warm-up {warm_s:.3f} s; timed {iter_s[0]:.4f} s, {iter_s[1]:.4f} s per iteration = "
+        f"{N_ENVS * steps_per_iter / iter_s[0]:.1f}, {N_ENVS * steps_per_iter / iter_s[1]:.1f} "
+        f"train env steps/s with learning on ({iter_s[0] / steps_per_iter * 1e3:.3f}, "
+        f"{iter_s[1] / steps_per_iter * 1e3:.3f} ms per env step); "
+        f"{updates_per_s:.1f} SAC updates/s over both timed iterations; K1 launches {train_launches} == "
+        f"env steps taken")
+    log(f"[8] under set_sync_debug_mode('error'): one iteration enqueued in {sync_free_ms:.1f} "
+        f"ms with no host-device synchronisation; buffer size {carry.buffer.size}, ptr "
+        f"{carry.buffer.ptr}; updates {agent.step}; metrics "
+        + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()) + "; params finite, alpha > 0, "
+        "target != online critic: ok")
+
+    # ---- 8b. where the time of a train step goes: 16 steps under the profiler,
+    # then one SAC update and one replay write + sample alone
+    prof_it = loop.make_train_iteration(
+        train_sac, dataclasses.replace(train_loop, rollout_steps=TRAIN_PROFILE_STEPS))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, _ = prof_it(carry, env_params)
+        torch.cuda.synchronize()
+        train_prof_ms = (time.perf_counter() - t0) / TRAIN_PROFILE_STEPS * 1e3
+    device_breakdown(prof, TRAIN_PROFILE_STEPS, train_prof_ms, "[8b]",
+                     f"profiled train iteration, {N_ENVS} envs x {TRAIN_PROFILE_STEPS} steps")
+    # the host side of the same run: operators by self CPU time (inflated by
+    # the profiler's own cost, so read it as shares)
+    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total_us = sum(e.self_cpu_time_total for e in host_ops)
+    for e in host_ops[:12]:
+        log(f"[8b] host {e.self_cpu_time_total / TRAIN_PROFILE_STEPS / 1e3:8.4f} ms/step "
+            f"({e.self_cpu_time_total / total_us:6.2%}) {e.count / TRAIN_PROFILE_STEPS:6.1f}x "
+            f"{e.key[:70]}")
+    del prof, host_ops
+    gc.collect()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    batch = replay.sample(carry.buffer, train_sac.batch_size, generator=gen)
+    # one update per timed window: ten would overrun the device's queue of
+    # pending launches while the stream sleeps, and time the host instead
+    update_ms = device_ms(lambda: sac.update(carry.agent, batch, train_sac, generator=gen),
+                          reps=30, inner=1)
+    update_host_ms = host_us(lambda: sac.update(carry.agent, batch, train_sac, generator=gen),
+                             reps=9, inner=10) / 1e3
+    rows = {k: v[:N_ENVS].clone() for k, v in carry.buffer.data.items()}
+
+    def write_and_sample():
+        return replay.sample(replay.add_batch(carry.buffer, rows), train_sac.batch_size,
+                             generator=gen)
+
+    replay_ms = device_ms(write_and_sample, reps=20, inner=20)
+    replay_host_ms = host_us(write_and_sample) / 1e3
+    log(f"[8b] sac.update at batch {train_sac.batch_size}: device {update_ms:.4f} ms, host "
+        f"{update_host_ms:.4f} ms per call; replay add_batch ({N_ENVS} rows) + sample "
+        f"({train_sac.batch_size}): device {replay_ms:.4f} ms, host {replay_host_ms:.4f} ms "
+        f"per call")
+
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "K1 step_kernel",
         "route": "cuda",
         "source": "tvc_ai_torch/csrc/step_kernel.cu",
         "replaces": "tvc_ai_tpu/ops/pallas_step.py:73",
-        "launches": main_launches,
+        "launches": train_launches,
+        "launches_by_path": {"env": env_launches, "rollout": main_launches,
+                             "train": train_launches},
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -10,7 +10,14 @@ consumes, so both packages can be fed the same numbers:
   uniform(7) initial-state draw; k_noise the normal(7) IMU noise;
 - step: ``_pre_physics`` splits the carried key into (key, k_noise) when
   sensor noise is on; ``_finish_autoreset`` splits ``key`` into
-  (k_reset, k_carry) and resets from k_reset.
+  (k_reset, k_carry) and resets from k_reset;
+- train iteration (``training/loop.py``): each step splits the carry's key
+  into (k_act, k_sample, k_update, k_next); the action noise is
+  normal(k_act, (N, A)); each update splits its key, starting from
+  k_update, into (k_s, k_d, k_u, key); the replay rows are
+  randint(k_s, (B - n_demo,), 0, max(size, 1)), the demo rows
+  randint(k_d, (n_demo,), 0, max(demo size, 1)); ``sac.update`` splits k_u
+  into (k_next, k_pi), each drawing normal(·, (B, A)).
 """
 
 from __future__ import annotations
@@ -21,9 +28,12 @@ import numpy as np
 import pytest
 import torch
 
+from tvc_ai_torch.agents.sac import UpdateDraws
 from tvc_ai_torch.convert import env_params_from_numpy
 from tvc_ai_torch.env import rocket_env as t_env
 from tvc_ai_torch.env.rocket_env import ResetDraws
+from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws
+from tvc_ai_tpu.agents import replay as j_replay
 from tvc_ai_tpu.env import rocket_env as j_env
 from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig
 
@@ -82,6 +92,51 @@ class KeyChain:
 
 def np_tree(x):
     return jax.tree.map(np.asarray, x)
+
+
+def to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def update_draws(key, batch: int, action_dim: int) -> UpdateDraws:
+    """The noise ``sac.update(.., key, ..)`` draws for a batch."""
+    k_next, k_pi = jax.random.split(key)
+    return UpdateDraws(n_next=to_torch(jax.random.normal(k_next, (batch, action_dim))),
+                       n_pi=to_torch(jax.random.normal(k_pi, (batch, action_dim))))
+
+
+def sample_idx(key, n: int, size: int) -> torch.Tensor:
+    """The rows ``replay.sample`` draws from a buffer holding ``size`` rows."""
+    idx = jax.random.randint(key, (n,), 0, jnp.maximum(jnp.int32(size), 1))
+    return to_torch(idx).to(torch.int64)
+
+
+def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
+                    demo_size: int = 0) -> list[IterDraws]:
+    """Every draw of one JAX ``make_train_iteration`` call, from the carry's
+    key, the envs' keys before each step (T, N, 2) and the buffer's size after
+    each step's write. Steps that take no update get no ``SampleDraws``."""
+    n, a, b = loop_cfg.num_envs, loop_cfg.action_dim, sac_cfg.batch_size
+    n_demo = int(round(b * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
+    every = max(loop_cfg.update_interval, 1)
+    out = []
+    for t in range(loop_cfg.rollout_steps):
+        k_act, _, k_update, key = jax.random.split(key, 4)
+        n_imu, reset = chain.step(env_keys[t])
+        step = StepDraws(n_act=to_torch(jax.random.normal(k_act, (n, a))), n_imu=n_imu,
+                         reset=reset)
+        samples = []
+        if t % every == every - 1 and sizes[t] >= sac_cfg.learning_starts:
+            k = k_update
+            for _ in range(loop_cfg.updates_per_step):
+                k_s, k_d, k_u, k = jax.random.split(k, 4)
+                samples.append(SampleDraws(
+                    idx=sample_idx(k_s, b - n_demo, sizes[t]),
+                    idx_demo=sample_idx(k_d, n_demo, demo_size) if n_demo else None,
+                    update=update_draws(k_u, b, a),
+                ))
+        out.append(IterDraws(step=step, samples=samples))
+    return out
 
 
 def assert_state_close(t_state, j_state, atol=5e-5, rtol=5e-4, what=""):
@@ -147,3 +202,13 @@ def test_env_params_round_trip():
     assert tp.rocket.thrust_offset == (0.0, 0.0, -0.5)
     assert tp.init_pos == (0.0, 0.0, 1.0)
     assert tp.rocket.substeps == 4 and tp.rocket.double_gravity is True
+
+
+def test_sample_idx_replays_replay_sample():
+    """The replayed rows are the rows ``replay.sample`` returns, at several fills."""
+    buf = j_replay.ReplayBuffer.create(64, {"x": jnp.zeros(())})
+    buf = buf.replace(data={"x": jnp.arange(64, dtype=jnp.float32)})
+    for size, seed in ((0, 1), (1, 2), (37, 3), (64, 4)):
+        key = jax.random.PRNGKey(seed)
+        rows = j_replay.sample(buf.replace(size=jnp.int32(size)), key, 16)["x"]
+        np.testing.assert_array_equal(sample_idx(key, 16, size).numpy(), np.asarray(rows))

@@ -1,1 +1,1 @@
-"""Learning agents (the act half of SAC so far)."""
+"""Learning agents: SAC with its replay ring and optimizers."""

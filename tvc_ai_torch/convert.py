@@ -1,8 +1,9 @@
-"""Carry weights, env state and env parameters across from the JAX package.
+"""Carry weights, optimizer, replay, env and loop state across from the JAX package.
 
-The inputs are plain host data: nested dicts (or attribute objects) whose
-leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing here
-imports JAX or flax; a caller holding JAX pytrees maps them to numpy first.
+The inputs are plain host data: nested dicts, tuples (or attribute objects)
+whose leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing
+here imports JAX, flax or optax; a caller holding JAX pytrees maps them to
+numpy first (``jax.tree.map(np.asarray, tree)`` keeps optax's named tuples).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from tvc_ai_torch.agents import optim, sac
+from tvc_ai_torch.agents.replay import ReplayBuffer
 from tvc_ai_torch.env.types import (
     DomainParams,
     EnvParams,
@@ -23,6 +26,7 @@ from tvc_ai_torch.env.types import (
     TerminationConfig,
 )
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
+from tvc_ai_torch.training.loop import TrainCarry, TrainLoopConfig, policy_obs_dim
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -30,20 +34,32 @@ def _get(obj: Any, name: str) -> Any:
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
-def actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """``GaussianActor`` state dict from flax actor params.
-
-    Accepts the variables dict (``{"params": {...}}``) or its inner dict. A
-    flax ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in).
-    """
+def _dense_layers(params: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
+    """State dict of the flax ``Dense`` layers in ``params`` (nested modules
+    joined with "."). Accepts the variables dict (``{"params": {...}}``) or
+    its inner dict. A flax kernel is (in, out); ``nn.Linear.weight`` is
+    (out, in)."""
     if "params" in params:
         params = params["params"]
     state = {}
-    for layer, leaves in params.items():
-        kernel = np.asarray(leaves["kernel"], dtype=np.float32)
-        state[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
-        state[f"{layer}.bias"] = torch.tensor(np.asarray(leaves["bias"], dtype=np.float32))
+    for name, sub in params.items():
+        if "kernel" in sub:
+            kernel = np.asarray(sub["kernel"], dtype=np.float32)
+            state[f"{prefix}{name}.weight"] = torch.tensor(kernel.T)
+            state[f"{prefix}{name}.bias"] = torch.tensor(np.asarray(sub["bias"], dtype=np.float32))
+        else:
+            state.update(_dense_layers(sub, f"{prefix}{name}."))
     return state
+
+
+def actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``GaussianActor`` state dict from flax actor params."""
+    return _dense_layers(params)
+
+
+def critic_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``TwinQ`` state dict (``q1.hidden_0.weight``, …) from flax critic params."""
+    return _dense_layers(params)
 
 
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
@@ -114,3 +130,111 @@ def env_params_from_numpy(params: Any) -> EnvParams:
         else:
             fields[f.name] = _scalar(src, getattr(default, f.name))
     return EnvParams(**fields)
+
+
+def _has(obj: Any, name: str) -> bool:
+    return name in obj if isinstance(obj, Mapping) else hasattr(obj, name)
+
+
+def _find_adam(opt_state: Any) -> Any:
+    """The ``ScaleByAdamState`` (mu, nu, count) inside an optax chain's state."""
+    if all(_has(opt_state, k) for k in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def _adam_state(opt_state: Any, module: torch.nn.Module, device: torch.device) -> optim.AdamState:
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+    moments = []
+    for tree in (_get(adam, "mu"), _get(adam, "nu")):
+        state = _dense_layers(tree)
+        moments.append([state[name].to(device) for name, _ in module.named_parameters()])
+    return optim.AdamState(mu=moments[0], nu=moments[1], count=int(np.asarray(_get(adam, "count"))))
+
+
+def _scalar_adam_state(opt_state: Any, device: torch.device) -> optim.AdamState:
+    adam = _find_adam(opt_state)
+    return optim.AdamState(
+        mu=[_tensor(_get(adam, "mu"), device)], nu=[_tensor(_get(adam, "nu"), device)],
+        count=int(np.asarray(_get(adam, "count"))),
+    )
+
+
+def sac_state_from_numpy(
+    state: Any,
+    cfg: sac.SACConfig,
+    obs_dim: int,
+    action_dim: int,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> sac.SACState:
+    """``SACState`` from a JAX ``SACState`` mapped to numpy: the actor,
+    critic, target critic and EMA actor parameters, ``log_alpha``, the three
+    optax states (``mu``/``nu``/``count`` from inside ``chain(clip,
+    adam(schedule))`` and from the temperature's ``adam``) and ``step``."""
+    dev = resolve_device(device)
+    agent = sac.init(obs_dim, action_dim, cfg, dev)
+    agent.actor.load_state_dict(actor_from_flax(_get(state, "actor_params")))
+    agent.critic.load_state_dict(critic_from_flax(_get(state, "critic_params")))
+    agent.target_critic.load_state_dict(critic_from_flax(_get(state, "target_critic_params")))
+    ema = _get(state, "ema_actor_params")
+    if (ema is None) != (agent.ema_actor is None):
+        raise ValueError("the EMA actor is present in one of the state and the config only")
+    if ema is not None:
+        agent.ema_actor.load_state_dict(actor_from_flax(ema))
+    agent.log_alpha = _tensor(_get(state, "log_alpha"), dev)
+    agent.actor_opt = _adam_state(_get(state, "actor_opt"), agent.actor, dev)
+    agent.critic_opt = _adam_state(_get(state, "critic_opt"), agent.critic, dev)
+    agent.alpha_opt = _scalar_adam_state(_get(state, "alpha_opt"), dev)
+    agent.step = int(np.asarray(_get(state, "step")))
+    return agent
+
+
+def replay_from_numpy(buffer: Any, device: str | torch.device = DEFAULT_DEVICE) -> ReplayBuffer:
+    """``ReplayBuffer`` from a JAX ``ReplayBuffer`` mapped to numpy; ``ptr``
+    and ``size`` become host ints."""
+    dev = resolve_device(device)
+    return ReplayBuffer(
+        data={k: _tensor(v, dev) for k, v in _get(buffer, "data").items()},
+        ptr=int(np.asarray(_get(buffer, "ptr"))),
+        size=int(np.asarray(_get(buffer, "size"))),
+        capacity=int(_get(buffer, "capacity")),
+    )
+
+
+def train_carry_from_numpy(
+    carry: Any,
+    sac_cfg: sac.SACConfig,
+    loop_cfg: TrainLoopConfig,
+    device: str | torch.device = DEFAULT_DEVICE,
+    seed: int = 0,
+) -> TrainCarry:
+    """``TrainCarry`` from a JAX ``TrainCarry`` mapped to numpy. The key
+    becomes a generator seeded with ``seed``; a carry with ICM, RND or
+    hierarchical state raises (not ported)."""
+    dev = resolve_device(device)
+    for name in ("icm", "rnd", "hier"):
+        if _get(carry, name) is not None:
+            raise NotImplementedError(f"TrainCarry.{name} is not ported")
+    window = _get(carry, "obs_window")
+    demo = _get(carry, "demo_buffer")
+    counters = ("env_steps", "episodes", "successes", "ep_return", "ep_length", "return_sum",
+                "length_sum", "ep_ring_return", "ep_ring_length", "ep_ring_success",
+                "ep_ring_seq", "ep_ring_ptr")
+    return TrainCarry(
+        env_states=env_state_from_numpy(_get(carry, "env_states"), dev),
+        obs=_tensor(_get(carry, "obs"), dev),
+        agent=sac_state_from_numpy(_get(carry, "agent"), sac_cfg, policy_obs_dim(loop_cfg),
+                                   loop_cfg.action_dim, dev),
+        buffer=replay_from_numpy(_get(carry, "buffer"), dev),
+        generator=torch.Generator(device=dev).manual_seed(seed),
+        obs_window=None if window is None else _tensor(window, dev),
+        demo_buffer=None if demo is None else replay_from_numpy(demo, dev),
+        **{name: _tensor(_get(carry, name), dev) for name in counters},
+    )

@@ -1,1 +1,1 @@
-"""Policy networks, the tanh-Gaussian head and the analytic safety layer."""
+"""Policy networks, twin critics, the tanh-Gaussian head and the analytic safety layer."""

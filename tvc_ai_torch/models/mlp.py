@@ -1,10 +1,13 @@
-"""MLP actor.
+"""MLP actor and twin critics.
 
-Counterpart of ``tvc_ai_tpu/models/mlp.py::GaussianActor``: a ReLU stack,
-then separate mean and log_std heads; orthogonal init with gain √2 and zero
-bias. Layer names match the flax module's (``hidden_0``, …, ``mean_head``,
-``log_std_head``) so ``convert.actor_from_flax`` maps them one to one.
-The critics (``TwinQ``) come with the training slice.
+Counterpart of ``tvc_ai_tpu/models/mlp.py``: ``GaussianActor`` (a ReLU
+stack, then separate mean and log_std heads), ``QNetwork`` (concat(obs,
+action), a ReLU stack, a ``q_head`` of width 1, squeezed) and ``TwinQ``
+(submodules ``q1`` and ``q2``); orthogonal init with gain √2 and zero bias.
+Layer names match the flax modules' (``hidden_0``, …, ``mean_head``,
+``log_std_head``, ``q_head``) so ``convert.actor_from_flax`` and
+``convert.critic_from_flax`` map them one to one. ``DeterministicActor``
+and ``ValueNetwork`` come with the TD3/PPO slice.
 """
 
 from __future__ import annotations
@@ -29,6 +32,21 @@ def _dense(in_features: int, out_features: int, generator: torch.Generator) -> n
     return layer
 
 
+def _add_hidden(module: nn.Module, width: int, hidden_dims: Sequence[int],
+                generator: torch.Generator) -> int:
+    """Add ``hidden_0``, … to ``module``; returns the last width."""
+    for i, h in enumerate(hidden_dims):
+        module.add_module(f"hidden_{i}", _dense(width, h, generator))
+        width = h
+    return width
+
+
+def _relu_stack(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    for i in range(len(module.hidden_dims)):
+        x = torch.relu(getattr(module, f"hidden_{i}")(x))
+    return x
+
+
 class GaussianActor(nn.Module):
     """obs (N, obs_dim) → (mean, log_std), each (N, action_dim); the caller
     squashes with tanh."""
@@ -45,16 +63,48 @@ class GaussianActor(nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)  # init on the CPU: same weights anywhere
         self.hidden_dims = tuple(hidden_dims)
-        width = obs_dim
-        for i, h in enumerate(self.hidden_dims):
-            self.add_module(f"hidden_{i}", _dense(width, h, gen))
-            width = h
+        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
         self.mean_head = _dense(width, action_dim, gen)
         self.log_std_head = _dense(width, action_dim, gen)
         self.to(dev)
 
     def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = obs
-        for i in range(len(self.hidden_dims)):
-            x = torch.relu(getattr(self, f"hidden_{i}")(x))
+        x = _relu_stack(self, obs)
         return self.mean_head(x), self.log_std_head(x)
+
+
+class QNetwork(nn.Module):
+    """(obs (N, obs_dim), action (N, action_dim)) → Q (N,)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, hidden_dims: Sequence[int],
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden_dims = tuple(hidden_dims)
+        width = _add_hidden(self, obs_dim + action_dim, self.hidden_dims, generator)
+        self.q_head = _dense(width, 1, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        x = _relu_stack(self, torch.cat([obs, action], dim=-1))
+        return self.q_head(x)[..., 0]
+
+
+class TwinQ(nn.Module):
+    """Two independent Q networks evaluated in one call (clipped double-Q)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden_dims: Sequence[int] = (256, 256),
+        device: str | torch.device = DEFAULT_DEVICE,
+        seed: int = 0,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.q1 = QNetwork(obs_dim, action_dim, hidden_dims, gen)
+        self.q2 = QNetwork(obs_dim, action_dim, hidden_dims, gen)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.q1(obs, action), self.q2(obs, action)

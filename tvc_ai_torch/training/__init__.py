@@ -1,1 +1,1 @@
-"""Rollout collection (the act-and-simulate half of the fused SAC iteration)."""
+"""The fused SAC train iteration and the act-only rollout."""

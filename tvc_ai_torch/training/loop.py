@@ -1,34 +1,442 @@
-"""Policy-in-the-loop rollout: the act-and-simulate half of the SAC iteration.
+"""The fused SAC iteration: act, simulate, write replay, learn, keep books.
 
-Counterpart of the per-step body of
-``tvc_ai_tpu/training/loop.py::make_train_iteration`` (act with
-``sac.select_action``, project with ``apply_safety``, step all envs with
-``batched_step_autoreset``) for ``history_len=1``. The replay write and the
-SAC update come with the training slice.
+Counterpart of ``tvc_ai_tpu/training/loop.py``: ``TrainLoopConfig``,
+``TrainCarry``, ``policy_obs_dim``, ``init_carry``, ``make_train_iteration``
+(the per-step body and the chunked ``update_interval > 1`` path),
+``drain_episodes`` and ``summarize``; ``collect`` is the act-only rollout.
+
+Where the reference runs one ``lax.scan`` under ``jit``, the port runs the
+same steps eagerly, in the same order, with no host-device synchronisation:
+the replay's ``ptr`` and ``size`` are host ints, so the ``learning_starts``
+gate is decided on the host; everything that depends on the data (episode
+counters, the finished-episode ring) stays on the device. Randomness is
+explicit: the iteration takes one ``IterDraws`` per step (the step's
+``StepDraws`` and one ``SampleDraws`` per update), or draws everything from
+the carry's generator.
+
+The finished-episode ring: with more envs finishing in one step than the
+ring has slots, the reference's scatter (``.at[slot].set(mode="drop")``) has
+duplicate slots, and XLA applies them in order, so the last writer wins. The
+port writes only the last ``episode_ring_size`` finishers of the step (their
+slots are distinct), which gives the same ring deterministically.
+
+Not ported, raising ``NotImplementedError``: ``use_curiosity``, ``use_rnd``,
+``use_physics_informed``, ``use_hierarchical``, ``hoist_bookkeeping=True``,
+``use_pallas_physics=False`` on CUDA, and a non-None ``axis_name``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 
+from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.rocket_env import ResetDraws
-from tvc_ai_torch.env.types import EnvParams, EnvState
+from tvc_ai_torch.env.types import ACTION_DIM, OBS_DIM, EnvParams, EnvState
 from tvc_ai_torch.models.mlp import GaussianActor
 from tvc_ai_torch.models.safety import SafetyConstraints, apply_safety
+from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
+
+UPDATE_METRICS = ("critic_loss", "actor_loss", "alpha_loss", "alpha", "q1_mean",
+                  "q2_mean", "entropy")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLoopConfig:
+    """Shape and cadence of the fused loop (the reference's fields; the
+    curiosity, RND, physics-informed and hierarchical sub-configs wait for
+    their modules)."""
+
+    num_envs: int = 4096
+    rollout_steps: int = 100
+    updates_per_step: int = 1
+    update_interval: int = 1
+    obs_dim: int = OBS_DIM
+    action_dim: int = ACTION_DIM
+    use_safety_layer: bool = False
+    use_curiosity: bool = False
+    use_rnd: bool = False
+    use_physics_informed: bool = False
+    use_hierarchical: bool = False
+    history_len: int = 1
+    # None = auto (K1 whenever no opt-in physics term is on)
+    use_pallas_physics: bool | None = None
+    episode_ring_size: int = 256
+    demo_fraction: float = 0.0
+    hoist_bookkeeping: bool | None = None
+    safety: SafetyConstraints = dataclasses.field(default_factory=SafetyConstraints)
+
+
+@dataclasses.dataclass
+class TrainCarry:
+    """Everything the iteration threads from step to step. ``generator`` is
+    the counterpart of the reference's ``key``; the ICM, RND and
+    hierarchical fields are not ported."""
+
+    env_states: EnvState            # (N, ...)
+    obs: torch.Tensor               # (N, policy_obs_dim) current policy observations
+    agent: sac.SACState
+    buffer: replay_mod.ReplayBuffer
+    generator: torch.Generator
+    obs_window: torch.Tensor | None  # (N, history_len, obs_dim) or None
+    env_steps: torch.Tensor         # (N,) int32 steps taken by each env slot
+    episodes: torch.Tensor          # (N,) int32 finished episodes per slot
+    successes: torch.Tensor         # (N,) int32 successful episodes per slot
+    ep_return: torch.Tensor         # (N,) running episode return
+    ep_length: torch.Tensor         # (N,) int32 running episode length
+    return_sum: torch.Tensor        # (N,) sum of finished-episode returns
+    length_sum: torch.Tensor        # (N,) sum of finished-episode lengths
+    ep_ring_return: torch.Tensor    # (K,) float32
+    ep_ring_length: torch.Tensor    # (K,) float32
+    ep_ring_success: torch.Tensor   # (K,) float32
+    ep_ring_seq: torch.Tensor       # (K,) int32 env-step counter at completion, -1 empty
+    ep_ring_ptr: torch.Tensor       # (1,) int32 next write slot
+    demo_buffer: replay_mod.ReplayBuffer | None = None  # sampled, never written
 
 
 @dataclasses.dataclass
 class StepDraws:
-    """The random numbers one rollout step consumes (see ``rocket_env``)."""
+    """The random numbers one env step consumes (see ``rocket_env``)."""
 
     n_act: torch.Tensor | None = None   # (N, 2) exploration noise
     n_imu: torch.Tensor | None = None   # (N, 7) IMU noise of the new obs
     reset: ResetDraws | None = None     # the autoreset's draws
+
+
+@dataclasses.dataclass
+class SampleDraws:
+    """The random numbers one update consumes: the replay rows, the demo
+    rows (when ``demo_fraction > 0``) and the update's noise."""
+
+    idx: torch.Tensor | None = None       # (B - n_demo,) int64
+    idx_demo: torch.Tensor | None = None  # (n_demo,) int64
+    update: sac.UpdateDraws | None = None
+
+
+@dataclasses.dataclass
+class IterDraws:
+    """One step's draws: the env step's and one ``SampleDraws`` per update
+    (read only where the step learns)."""
+
+    step: StepDraws = dataclasses.field(default_factory=StepDraws)
+    samples: Sequence[SampleDraws] = ()
+
+
+def policy_obs_dim(loop_cfg: TrainLoopConfig) -> int:
+    """What the agent sees: env obs × history."""
+    return loop_cfg.obs_dim * loop_cfg.history_len
+
+
+def _check_supported(loop_cfg: TrainLoopConfig, axis_name: str | None) -> None:
+    waits = {
+        "use_curiosity": "the ICM slice",
+        "use_rnd": "the RND slice",
+        "use_physics_informed": "the ICM slice",
+        "use_hierarchical": "the hierarchical slice",
+        "hoist_bookkeeping": "a later slice (the reference's hoisted path, default off)",
+    }
+    for name, module in waits.items():
+        if getattr(loop_cfg, name):
+            raise NotImplementedError(f"TrainLoopConfig.{name} is not ported; it waits for {module}")
+    if axis_name is not None:
+        raise NotImplementedError("data-parallel training (axis_name) waits for its own slice")
+
+
+def _example(loop_cfg: TrainLoopConfig) -> dict[str, torch.Tensor]:
+    dim = policy_obs_dim(loop_cfg)
+    return {
+        "obs": torch.zeros(dim),
+        "action": torch.zeros(loop_cfg.action_dim),
+        "reward": torch.zeros(()),
+        "next_obs": torch.zeros(dim),
+        "done": torch.zeros(()),
+    }
+
+
+def init_carry(
+    env_params: EnvParams,
+    sac_cfg: sac.SACConfig,
+    loop_cfg: TrainLoopConfig,
+    device: str | torch.device = DEFAULT_DEVICE,
+    seed: int = 0,
+    reset_draws: ResetDraws | None = None,
+) -> TrainCarry:
+    """Reset N envs, initialize the agent, allocate the replay (capacity
+    ``buffer_size`` rounded down to a multiple of N, at least N) and zero
+    the counters and the ring."""
+    dev = resolve_device(device)
+    n = loop_cfg.num_envs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    env_states, obs = rocket_env.reset(env_params, n, dev, generator=gen, draws=reset_draws)
+    obs_window = None
+    if loop_cfg.history_len > 1:
+        obs_window = obs[:, None, :].repeat(1, loop_cfg.history_len, 1)
+        obs = obs_window.reshape(n, -1)
+    agent = sac.init(policy_obs_dim(loop_cfg), loop_cfg.action_dim, sac_cfg, dev, seed)
+    capacity = max(sac_cfg.buffer_size - sac_cfg.buffer_size % n, n)
+    buffer = replay_mod.ReplayBuffer.create(capacity, _example(loop_cfg), dev)
+    k = loop_cfg.episode_ring_size
+
+    def zeros(size: int, dtype: torch.dtype) -> torch.Tensor:
+        return torch.zeros(size, dtype=dtype, device=dev)
+
+    f32, i32 = torch.float32, torch.int32
+    return TrainCarry(
+        env_states=env_states, obs=obs, agent=agent, buffer=buffer, generator=gen,
+        obs_window=obs_window,
+        env_steps=zeros(n, i32), episodes=zeros(n, i32), successes=zeros(n, i32),
+        ep_return=zeros(n, f32), ep_length=zeros(n, i32),
+        return_sum=zeros(n, f32), length_sum=zeros(n, f32),
+        ep_ring_return=zeros(k, f32), ep_ring_length=zeros(k, f32),
+        ep_ring_success=zeros(k, f32),
+        ep_ring_seq=torch.full((k,), -1, dtype=i32, device=dev),
+        ep_ring_ptr=zeros(1, i32),
+    )
+
+
+def ring_slots(done: torch.Tensor, ptr: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot of each env's finished episode, finishers in all).
+
+    Finisher j (in env order) goes to ``(ptr + j) % size``; only the last
+    ``size`` finishers are written, so the slots are distinct and the ring
+    equals the reference's last-writer-wins scatter. Envs that write
+    nothing get ``size``, one past the ring.
+    """
+    count = torch.cumsum(done.to(torch.int32), 0)
+    total = count[-1]
+    finished_before = count - 1
+    keep = done & (finished_before >= total - size)
+    slot = torch.where(keep, torch.remainder(ptr + finished_before, size), size)
+    return slot, total
+
+
+def ring_set(ring: torch.Tensor, slot: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``ring`` with ``values`` written at ``slot``; entries at slot
+    ``len(ring)`` are dropped."""
+    padded = torch.cat([ring, ring.new_zeros((1, *ring.shape[1:]))])
+    padded.index_put_((slot,), values.to(ring.dtype).expand(slot.shape[0], *ring.shape[1:]))
+    return padded[:-1]
+
+
+def make_train_iteration(
+    sac_cfg: sac.SACConfig,
+    loop_cfg: TrainLoopConfig,
+    axis_name: str | None = None,
+):
+    """Build ``train_iteration(carry, env_params, draws=None) -> (carry, metrics)``.
+
+    One call runs ``rollout_steps`` env steps. With ``update_interval`` K ≤ 1
+    every step writes replay and, once the buffer holds ``learning_starts``
+    rows, takes ``updates_per_step`` SAC updates; the update metrics are
+    averaged over all steps, the zeros of steps that did not learn included.
+    With K > 1 each chunk is K − 1 sim-only steps and one learning step; the
+    update metrics come from the learning step alone, ``reward_mean`` and
+    ``done_frac`` average the whole chunk. ``metrics`` holds 0-dim device
+    tensors.
+    """
+    _check_supported(loop_cfg, axis_name)
+    k_int = loop_cfg.update_interval
+    if loop_cfg.rollout_steps % max(k_int, 1) != 0:
+        raise ValueError(
+            f"rollout_steps ({loop_cfg.rollout_steps}) must be a multiple "
+            f"of update_interval ({k_int})"
+        )
+    batch_size = sac_cfg.batch_size
+    n_demo = (
+        int(round(batch_size * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
+    )
+    history, obs_dim = loop_cfg.history_len, loop_cfg.obs_dim
+    ring_size = loop_cfg.episode_ring_size
+
+    def batched_step(states, actions, env_params, d: StepDraws, generator):
+        # use_pallas_physics mirrors the reference's field; every case runs
+        # batched_step_autoreset, whose CPU path is the plain integrator.
+        use = loop_cfg.use_pallas_physics
+        if use is False and actions.device.type == "cuda":
+            raise NotImplementedError(
+                "use_pallas_physics=False on CUDA would bypass K1; the plain "
+                "integrator runs on CUDA tensors only for the opt-in physics terms"
+            )
+        if use and not rocket_env.pallas_physics_ok(env_params):
+            raise ValueError(
+                "use_pallas_physics=True but an extra physics term (magnus/ground-"
+                "effect/gyroscopic) is enabled; K1 implements parity physics only"
+            )
+        return rocket_env.batched_step_autoreset(
+            states, actions, env_params, generator=generator, n_imu=d.n_imu,
+            reset_draws=d.reset)
+
+    def learn(agent, buffer, demo_buffer, samples, generator):
+        """``updates_per_step`` updates, their metrics averaged."""
+        if samples and len(samples) != loop_cfg.updates_per_step:
+            raise ValueError(f"{len(samples)} SampleDraws, want {loop_cfg.updates_per_step}")
+        per_update = []
+        for u in range(loop_cfg.updates_per_step):
+            s = samples[u] if samples else SampleDraws()
+            if n_demo > 0:
+                on = replay_mod.sample(buffer, batch_size - n_demo, s.idx, generator)
+                demo = replay_mod.sample(demo_buffer, n_demo, s.idx_demo, generator)
+                batch = {k: torch.cat([on[k], demo[k]]) for k in on}
+                mask = torch.zeros(batch_size, device=on["obs"].device)
+                mask[batch_size - n_demo:] = 1.0
+                batch["demo_mask"] = mask
+            else:
+                batch = replay_mod.sample(buffer, batch_size, s.idx, generator)
+            agent, m = sac.update(agent, batch, sac_cfg, s.update, generator)
+            per_update.append(m)
+        if len(per_update) == 1:  # the mean of one: spare the launches
+            return agent, per_update[0]
+        return agent, {k: torch.stack([m[k] for m in per_update]).mean() for k in per_update[0]}
+
+    def no_update_metrics(agent, zero):
+        out = {name: zero for name in UPDATE_METRICS}
+        out["alpha"] = torch.exp(agent.log_alpha)
+        if n_demo > 0 and sac_cfg.bc_weight > 0:
+            out["bc_loss"] = zero
+        return out
+
+    def env_and_learn_step(carry: TrainCarry, env_params: EnvParams, d: IterDraws,
+                           learn_now: bool, zero: torch.Tensor):
+        gen = carry.generator
+        sd = d.step
+        # --- act & simulate
+        actions = sac.select_action(carry.agent.actor, carry.obs, sd.n_act, generator=gen)
+        cur_frame = carry.obs[:, -obs_dim:] if history > 1 else carry.obs
+        if loop_cfg.use_safety_layer:
+            actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)
+        env_states, out, next_obs = batched_step(carry.env_states, actions, env_params, sd, gen)
+
+        # --- history window: shift in the true next obs; on done, refill
+        # the whole window with the fresh episode's first obs
+        obs_window = carry.obs_window
+        done = out.terminated | out.truncated
+        if history > 1:
+            shifted = torch.cat([carry.obs_window[:, 1:], out.obs[:, None, :]], dim=1)
+            fresh = next_obs[:, None, :].expand(-1, history, -1)
+            obs_window = torch.where(done[:, None, None], fresh, shifted)
+            stacked_next_true = shifted.reshape(shifted.shape[0], -1)
+            stacked_next_policy = obs_window.reshape(obs_window.shape[0], -1)
+        else:
+            stacked_next_true, stacked_next_policy = out.obs, next_obs
+
+        # --- replay write (terminated-only done: truncation bootstraps)
+        buffer = replay_mod.add_batch(carry.buffer, {
+            "obs": carry.obs,
+            "action": actions,
+            "reward": out.reward,
+            "next_obs": stacked_next_true,
+            "done": out.terminated.to(torch.float32),
+        })
+
+        # --- learn, gated on learning_starts (host ints: no sync)
+        if learn_now and buffer.size >= sac_cfg.learning_starts:
+            agent, upd_metrics = learn(carry.agent, buffer, carry.demo_buffer, d.samples, gen)
+        else:
+            agent, upd_metrics = carry.agent, no_update_metrics(carry.agent, zero)
+
+        # --- episode bookkeeping, per env on the device
+        ep_return = carry.ep_return + out.reward
+        ep_length = carry.ep_length + 1
+        success = done & out.mission_success
+        episodes = carry.episodes + done.to(torch.int32)
+        successes = carry.successes + success.to(torch.int32)
+        return_sum = carry.return_sum + torch.where(done, ep_return, 0.0)
+        length_sum = carry.length_sum + torch.where(done, ep_length.to(torch.float32), 0.0)
+        slot, total = ring_slots(done, carry.ep_ring_ptr[0], ring_size)
+        new_carry = TrainCarry(
+            env_states=env_states,
+            obs=stacked_next_policy,
+            agent=agent,
+            buffer=buffer,
+            generator=gen,
+            obs_window=obs_window,
+            env_steps=carry.env_steps + 1,
+            episodes=episodes,
+            successes=successes,
+            ep_return=torch.where(done, 0.0, ep_return),
+            ep_length=torch.where(done, 0, ep_length),
+            return_sum=return_sum,
+            length_sum=length_sum,
+            ep_ring_return=ring_set(carry.ep_ring_return, slot, ep_return),
+            ep_ring_length=ring_set(carry.ep_ring_length, slot, ep_length),
+            ep_ring_success=ring_set(carry.ep_ring_success, slot, success),
+            ep_ring_seq=ring_set(carry.ep_ring_seq, slot, carry.env_steps[0]),
+            ep_ring_ptr=torch.remainder(carry.ep_ring_ptr + total, ring_size).to(torch.int32),
+            demo_buffer=carry.demo_buffer,
+        )
+        step_metrics = dict(upd_metrics, reward_mean=out.reward.mean(),
+                            done_frac=done.to(torch.float32).mean())
+        return new_carry, step_metrics
+
+    def mean_over(rows: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+        return {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
+
+    def train_iteration(carry: TrainCarry, env_params: EnvParams,
+                        draws: Sequence[IterDraws] | None = None):
+        steps = loop_cfg.rollout_steps
+        if draws is not None and len(draws) != steps:
+            raise ValueError(f"draws holds {len(draws)} steps, want {steps}")
+        zero = torch.zeros((), device=carry.obs.device)
+        empty = IterDraws()
+        rows = []
+        if k_int <= 1:
+            for t in range(steps):
+                carry, m = env_and_learn_step(
+                    carry, env_params, draws[t] if draws is not None else empty, True, zero)
+                rows.append(m)
+        else:
+            for c in range(steps // k_int):
+                sim = []
+                for j in range(k_int):
+                    t = c * k_int + j
+                    carry, m = env_and_learn_step(
+                        carry, env_params, draws[t] if draws is not None else empty,
+                        j == k_int - 1, zero)
+                    sim.append(m)
+                merged = dict(sim[-1])
+                for name in ("reward_mean", "done_frac"):
+                    merged[name] = torch.stack([m[name] for m in sim]).sum() / k_int
+                rows.append(merged)
+        return carry, mean_over(rows)
+
+    return train_iteration
+
+
+def drain_episodes(carry: TrainCarry, last_seq: int) -> tuple[list[tuple[float, int, bool]], int]:
+    """Finished episodes newer than ``last_seq`` from the ring, in completion
+    order, as ``(return, length, success)``; and the newest ``seq``. Ring
+    overflow keeps only the most recent ``episode_ring_size``."""
+    rets = carry.ep_ring_return.cpu().numpy()
+    lens = carry.ep_ring_length.cpu().numpy()
+    succ = carry.ep_ring_success.cpu().numpy()
+    seq = carry.ep_ring_seq.cpu().numpy()
+    new = seq > last_seq
+    if not new.any():
+        return [], last_seq
+    order = np.argsort(seq[new], kind="stable")
+    episodes = [
+        (float(r), int(l), bool(s > 0.5))
+        for r, l, s in zip(rets[new][order], lens[new][order], succ[new][order])
+    ]
+    return episodes, int(seq.max())
+
+
+def summarize(carry: TrainCarry) -> dict[str, Any]:
+    """Host-side snapshot of the counters."""
+    eps = max(int(carry.episodes.sum()), 1)
+    return {
+        "env_steps": int(carry.env_steps.sum()),
+        "episodes": int(carry.episodes.sum()),
+        "success_rate": float(carry.successes.sum()) / eps,
+        "mean_episode_return": float(carry.return_sum.sum()) / eps,
+        "mean_episode_length": float(carry.length_sum.sum()) / eps,
+        "buffer_size": carry.buffer.size,
+    }
 
 
 @dataclasses.dataclass
@@ -50,7 +458,8 @@ def collect(
     generator: torch.Generator | None = None,
     draws: Sequence[StepDraws] | None = None,
 ) -> Rollout:
-    """Run ``steps`` act-and-simulate steps for the N envs in ``env_states``.
+    """Run ``steps`` act-and-simulate steps for the N envs in ``env_states``
+    (``history_len=1``, nothing learned).
 
     Each step samples a tanh-Gaussian action, applies the safety projection
     (skipped when ``safety`` is None), then ``batched_step_autoreset`` (the K1
