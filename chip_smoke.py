@@ -42,10 +42,27 @@ on; phase [8b] profiles 16 steps of it and times one ``sac.update`` and one
 replay ``add_batch`` + ``sample`` (device ms by CUDA events, host ms per
 call).
 
+Phases [9a], [9] and [9b] drive the trainer's entry points, read from the
+port's own ``config/default.yaml``. [9a] holds the evaluation rollout
+(``eval.rollout.make_eval_fn``, 20 episodes, the default training env) on
+the card against the CPU over 64 steps, times and profiles the eval step at
+N = 20, counts how many outcomes differ over the full 1000-step horizon, and
+holds K1 against its plain version at N = 2, 20 and 50 beside its launch
+floor there. [9] runs ``training.trainer.Trainer`` at the default
+configuration for 3 iterations of 4096 envs x 128 steps with an eval round
+after each (per-stage seconds from its ``StageTimer``, train env steps/s,
+eval metrics, checkpoint bytes and save seconds), resumes from its final
+checkpoint into a 4th iteration with the restored carry and generators
+checked bit for bit, and resumes once from a best step directory. [9b] runs
+the three evaluation suites (``eval.evaluate.run_all_suites``) at their full
+episode counts and horizons. The launch counter shows one K1 launch per
+env step of training and per step an eval ran.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
-them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us`` and
-the launches of each path beside the contract's keys; ``launches`` is the
-train iteration's); and, as the last line, ``{"ok": true,
+them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
+K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
+launches of each path beside the contract's keys; ``launches`` is the
+trainer's, [9]); and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code not 0, no result line); so
 does a host without CUDA.
 """
@@ -53,14 +70,17 @@ does a host without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib.util
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,14 +88,19 @@ import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
 
 from tvc_ai_torch.agents import replay, sac
+from tvc_ai_torch.config import build_env_params, build_sac_config, default_config_path, load_config
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
+from tvc_ai_torch.eval.evaluate import _suite_env_params, run_all_suites
+from tvc_ai_torch.eval.rollout import EvalDraws, make_eval_fn, steps_run, summarize_stats
 from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.physics import integrator
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.training import loop
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
+from tvc_ai_torch.training.trainer import Trainer
+from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
 from tvc_ai_torch.utils.devices import set_parity_precision
 
 N_ENVS = 4096
@@ -83,8 +108,9 @@ ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 8   # the shape of bench.py
 ROLLOUT_STEPS = 128
 PROFILE_STEPS = 32
 TRAIN_PROFILE_STEPS = 16
-# the default training run, tvc_ai_tpu/config/default.yaml:29-46 (algorithms.sac)
-# and :189-197 (training); chip_smoke reads no YAML
+EVAL_TIMED_STEPS = 256
+# the default training run, config/default.yaml:29-46 (algorithms.sac) and
+# :189-197 (training), as [7] and [8] build it by hand; [9] reads the YAML
 DEFAULT_SAC = dict(hidden_dims=(256, 256), lr_actor=5e-5, lr_critic=1.5e-4, lr_alpha=3e-4,
                    buffer_size=1_000_000, learning_starts=1000, batch_size=256, tau=0.005,
                    gamma=0.99, gradient_clip_norm=5.0, reward_scale=0.05)  # ent_coef: auto
@@ -286,6 +312,142 @@ def max_abs_diff(a: RigidBodyState, b: RigidBodyState) -> float:
 def assert_body_close(a: RigidBodyState, b: RigidBodyState, tol: dict, what: str) -> None:
     for f in ("pos", "quat", "vel", "omega"):
         torch.testing.assert_close(getattr(a, f), getattr(b, f), msg=f"{what} {f}", **tol)
+
+
+TRAINER_TOTAL = 1_572_864   # 3 iterations of 4096 envs x 128 steps
+RESUME_TOTAL = 2_097_152    # one more
+
+
+def counting_evals(trainer, record: list) -> None:
+    """Wrap the trainer's eval function so each call records (K1 launches,
+    steps run, host seconds)."""
+    inner = trainer._eval_fn
+
+    def counted(agent, generator, params, draws=None):
+        before, t0 = k1.step_kernel.launches, time.perf_counter()
+        stats = inner(agent, generator, params, draws)
+        record.append((k1.step_kernel.launches - before,
+                       steps_run(stats.lengths, params.max_episode_steps),
+                       time.perf_counter() - t0))
+        return stats
+
+    trainer._eval_fn = counted
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_trainer(scratch: Path, dev) -> int:
+    """[9]: ``Trainer`` on the default config for 3 iterations, then resumed;
+    returns the first run's K1 launches."""
+    cfg_path = default_config_path()
+    cfg = load_config(cfg_path, [f"training.total_timesteps={TRAINER_TOTAL}"])
+    t1 = Trainer(cfg, output_dir=scratch / "run1", device=dev)
+    steps_per_iter = t1.loop_cfg.num_envs * t1.loop_cfg.rollout_steps
+    evals: list = []
+    counting_evals(t1, evals)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = t1.train()
+    wall = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    iters = result["iterations"]
+    assert iters == TRAINER_TOTAL // steps_per_iter and result["stop_reason"] == "total_timesteps", (
+        iters, result["stop_reason"])
+    assert result["env_steps"] == TRAINER_TOTAL, result["env_steps"]
+    assert all(n == ran for n, ran, _ in evals), evals
+    # nominal + stage eval after each iteration, and the final eval
+    assert len(evals) == 2 * (iters + 1), len(evals)
+    assert launches == iters * t1.loop_cfg.rollout_steps + sum(n for n, _, _ in evals), launches
+    timing = result["stage_timing"]
+    for name in ("train_iteration", "evaluate", "checkpoint"):
+        log(f"[9] trainer stage {name}: {timing[name]['total_sec']:.4f} s in all, "
+            f"{timing[name]['count']}x, mean {timing[name]['mean_sec']:.4f} s")
+    train_rate = iters * steps_per_iter / timing["train_iteration"]["total_sec"]
+    eval_steps = sum(ran for _, ran, _ in evals)
+    eval_s = sum(sec for _, _, sec in evals)
+    final = scratch / "run1" / "checkpoints"
+    best = scratch / "run1" / "checkpoints_best"
+    final_steps = sorted(int(d.name) for d in final.iterdir() if d.name.isdigit())
+    best_steps = sorted(int(d.name) for d in best.iterdir() if d.name.isdigit())
+    assert final_steps == [TRAINER_TOTAL] and best_steps, (final_steps, best_steps)
+    ckpt_bytes = dir_bytes(final / str(TRAINER_TOTAL))
+    for name in ("final_metrics.json", "curriculum.json", "metrics.csv", "training.log"):
+        assert (scratch / "run1" / name).exists(), name
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    log(f"[9] trainer (default config, {cfg_path.name}): {iters} iterations of "
+        f"{t1.loop_cfg.num_envs} envs x {t1.loop_cfg.rollout_steps} steps in {wall:.3f} s of "
+        f"train(); {train_rate:.1f} train env steps/s over the train_iteration stage, "
+        f"{result['steps_per_sec']:.1f} env steps/s over the loop; stop_reason "
+        f"{result['stop_reason']}; {len(evals)} eval rollouts of {cfg.training.eval_episodes} "
+        f"episodes ran {eval_steps} steps in {eval_s:.3f} s ({eval_steps / eval_s:.1f} eval "
+        f"steps/s); K1 launches {launches} == {iters} x {t1.loop_cfg.rollout_steps} + "
+        f"{eval_steps} eval steps")
+    log("[9] eval metrics: " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(metrics.items())))
+    log(f"[9] final checkpoint {final_steps[0]}: {ckpt_bytes} B; best steps {best_steps}; "
+        f"checkpoint stage {timing['checkpoint']['count']}x, mean "
+        f"{timing['checkpoint']['mean_sec']:.4f} s a save")
+
+    # resume from the manager root (the final save_last checkpoint)
+    cfg2 = load_config(cfg_path, [f"training.total_timesteps={RESUME_TOTAL}"])
+    t2 = Trainer(cfg2, output_dir=scratch / "run2", resume=final, device=dev)
+    diffs = diff_states({"carry": t1.carry, "generator": t1.generator},
+                        {"carry": t2.carry, "generator": t2.generator})
+    assert not diffs, diffs[:10]
+    assert t2.env_steps == TRAINER_TOTAL and t2.iteration == iters, (t2.env_steps, t2.iteration)
+    n_leaves = len(flat_state({"carry": t2.carry, "generator": t2.generator}))
+    evals2: list = []
+    counting_evals(t2, evals2)
+    before = k1.step_kernel.launches
+    result2 = t2.train()
+    launches2 = k1.step_kernel.launches - before
+    assert result2["env_steps"] == RESUME_TOTAL and result2["iterations"] == iters + 1, (
+        result2["env_steps"], result2["iterations"])
+    assert launches2 == t2.loop_cfg.rollout_steps + sum(n for n, _, _ in evals2), launches2
+    # and from one best step directory
+    t3 = Trainer(cfg, output_dir=scratch / "run3", resume=best / str(best_steps[-1]), device=dev)
+    assert t3.env_steps == best_steps[-1], (t3.env_steps, best_steps)
+    log(f"[9] resume from {final.name}/: restored carry and generators equal the first "
+        f"trainer's bit for bit ({n_leaves} leaves); env_steps {TRAINER_TOTAL} -> "
+        f"{result2['env_steps']} after one more iteration (K1 launches {launches2}); resume from "
+        f"{best.name}/{best_steps[-1]}: env_steps {t3.env_steps}: ok")
+    t3.logger.close()
+    del t1, t2, t3
+    gc.collect()
+    return launches
+
+
+def run_suites(scratch: Path, dev, n_obs: int) -> int:
+    """[9b]: the three evaluation suites at full episode counts and horizons
+    with a seeded 256x256 actor; returns their K1 launches."""
+    suite_sac = sac.SACConfig(HIDDEN)
+    agent = sac.init(n_obs, 2, suite_sac, device=dev, seed=SEED)
+    out_dir = scratch / "suites"
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = run_all_suites(agent, suite_sac, out_dir, seed=SEED, device=dev)
+    wall = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    assert launches == sum(r.steps for r in results.values()), (
+        launches, {k: r.steps for k, r in results.items()})
+    for name, r in results.items():
+        n_eps = r.stats.returns.shape[0]
+        assert (out_dir / f"{name}_episodes.csv").exists(), name
+        assert all(math.isfinite(v) for v in r.metrics.values()), r.metrics
+        log(f"[9b] suite {name}: {n_eps} episodes, horizon "
+            f"{_suite_env_params(name).max_episode_steps}, {r.steps} steps run before the early "
+            f"exit in {r.seconds:.3f} s ({n_eps * r.steps / r.seconds:.1f} env steps/s, "
+            f"{r.seconds / r.steps * 1e3:.3f} ms per step); success "
+            f"{r.metrics['eval_success_rate']:.3f}, crash {r.metrics['eval_crash_rate']:.3f}, "
+            f"mean length {r.metrics['eval_length_mean']:.1f}")
+    summary = json.loads((out_dir / "evaluation_summary.json").read_text())
+    assert set(summary) == set(results), summary.keys()
+    log(f"[9b] run_all_suites: {wall:.3f} s; CSVs, evaluation_summary.json"
+        f"{', evaluation_dashboard.png' if (out_dir / 'evaluation_dashboard.png').exists() else ''}"
+        f" written; K1 launches {launches} == steps run")
+    return launches
 
 
 def main() -> int:
@@ -689,15 +851,117 @@ def main() -> int:
         f"({train_sac.batch_size}): device {replay_ms:.4f} ms, host {replay_host_ms:.4f} ms "
         f"per call")
 
+    # ---- 9a. evaluation on the card (K1) against the CPU (plain version):
+    # the same seeded actor, reset draws and IMU noise, the default training
+    # env (curriculum stage 0, DR + sensor noise); then K1 below one block
+    cfg = load_config(default_config_path())
+    eval_params = build_env_params(cfg, cfg.curriculum.stages[0])
+    eval_sac = build_sac_config(cfg)
+    n_eval = cfg.training.eval_episodes
+    eval_agents = {where: sac.init(n_obs, 2, eval_sac, device=where, seed=SEED)
+                   for where in ("cpu", "cuda")}
+    cpu_gen = torch.Generator().manual_seed(SEED + 8)
+    horizon = cfg.env.max_episode_steps
+
+    def eval_draws(steps):
+        return EvalDraws(
+            reset=rocket_env.draw_reset(eval_params, n_eval, torch.device("cpu"), cpu_gen),
+            n_imu=torch.randn((steps, n_eval, 7), generator=cpu_gen))
+
+    def eval_both(steps, draws):
+        params = dataclasses.replace(eval_params, max_episode_steps=steps)
+        fn = make_eval_fn(eval_sac, n_eval)
+        out = {}
+        for where in ("cpu", "cuda"):
+            k1.step_kernel.launches = 0
+            t0 = time.perf_counter()
+            out[where] = fn(eval_agents[where], None, params, to_device(draws, where))
+            summarize_stats(out[where])
+            out[where + "_s"] = time.perf_counter() - t0
+            out[where + "_launches"] = k1.step_kernel.launches
+        ran = steps_run(out["cuda"].lengths, steps)
+        assert out["cuda_launches"] == ran, (out["cuda_launches"], ran)
+        assert out["cpu_launches"] == 0, out["cpu_launches"]
+        return out, ran
+
+    short_eval, ran = eval_both(64, eval_draws(64))
+    a, b = short_eval["cuda"], short_eval["cpu"]
+    for field in ("lengths", "success", "crashed"):
+        assert torch.equal(getattr(a, field).cpu(), getattr(b, field)), f"eval {field} differs"
+    torch.testing.assert_close(a.returns.cpu(), b.returns, **REWARD)
+    log(f"[9a] make_eval_fn {n_eval} episodes x 64 steps, card (K1) vs CPU (plain): lengths, "
+        f"success, crash equal; max |d return| {float((a.returns.cpu() - b.returns).abs().max()):.3e} "
+        f"(atol {REWARD['atol']}, rtol {REWARD['rtol']}); {int((b.lengths == 64).sum())} of "
+        f"{n_eval} episodes reach the horizon; {ran} steps run, K1 launches "
+        f"{short_eval['cuda_launches']}: ok")
+    # the eval step's own cost: a rollout held to its horizon (no early
+    # exit), timed over EVAL_TIMED_STEPS and profiled over PROFILE_STEPS
+    for steps, profiled in ((EVAL_TIMED_STEPS, False), (PROFILE_STEPS, True)):
+        params_t = dataclasses.replace(eval_params, max_episode_steps=steps)
+        fn = make_eval_fn(eval_sac, n_eval, check_every=10**9)
+        fn(eval_agents["cuda"], gen, params_t)   # warm-up
+        torch.cuda.synchronize()
+        tracer = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if profiled else contextlib.nullcontext())
+        with tracer as prof:
+            t0 = time.perf_counter()
+            summarize_stats(fn(eval_agents["cuda"], gen, params_t))
+            step_ms = (time.perf_counter() - t0) / steps * 1e3
+        if profiled:
+            device_breakdown(prof, steps, step_ms, "[9a]",
+                             f"profiled eval step, {n_eval} episodes x {steps} steps")
+        else:
+            eval_step_ms = step_ms
+            log(f"[9a] eval step at N = {n_eval}, {steps} steps held to the horizon: "
+                f"{step_ms:.4f} ms per step = {1e3 / step_ms:.1f} eval steps/s")
+        del prof
+    gc.collect()
+    full_eval, full_ran = eval_both(horizon, eval_draws(horizon))
+    a, b = full_eval["cuda"], full_eval["cpu"]
+    differ = int(((a.lengths.cpu() != b.lengths) | (a.success.cpu() != b.success)
+                  | (a.crashed.cpu() != b.crashed)).sum())
+    eval_rate = full_ran / full_eval["cuda_s"]
+    log(f"[9a] full horizon ({horizon} steps): {differ} of {n_eval} episodes' outcomes differ "
+        f"card vs CPU (not held: float32 rounding may flip a termination near its threshold); "
+        f"card: {full_ran} steps run before the early exit in {full_eval['cuda_s']:.3f} s = "
+        f"{eval_rate:.1f} eval steps/s at N = {n_eval} ({full_eval['cuda_s'] / full_ran * 1e3:.3f} "
+        f"ms per step), K1 launches {full_eval['cuda_launches']}; CPU "
+        f"{full_eval['cpu_s']:.3f} s; max length {int(b.lengths.max())}, success "
+        f"{float(a.success.float().mean()):.2f}, crash {float(a.crashed.float().mean()):.2f}")
+    small_n = {}
+    for n, tol in ((2, FLIGHT), (20, FLIGHT), (50, FLIGHT)):
+        state, ctrl, dr = random_physics_batch(n, gen, dev, clear=True)
+        out = k1.step_kernel(state, ctrl, params, *dr)
+        ref = integrator.step(state, ctrl, params, *dr)
+        torch.cuda.synchronize()
+        assert_body_close(out, ref, tol, f"K1 n={n}")
+        errs.append(max_abs_diff(out, ref))
+        small_n[n] = (device_ms(lambda: k1.step_kernel(state, ctrl, params, *dr)),
+                      device_ms(lambda: k1.launch_floor(n, dev)))
+        log(f"[9a] K1 n={n}: max |K1 - plain| = {errs[-1]:.3e} (atol {tol['atol']}, rtol "
+            f"{tol['rtol']}) ok; {small_n[n][0]:.5f} ms, launch floor {small_n[n][1]:.5f} ms")
+    del eval_agents, short_eval, full_eval
+
+    # ---- 9. the trainer at the default configuration, 3 iterations with an
+    # eval round after each, then resumed from its final checkpoint into a
+    # 4th, and once from a best step directory
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        trainer_launches = run_trainer(scratch, dev)
+        eval_launches = run_suites(scratch, dev, n_obs)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "K1 step_kernel",
         "route": "cuda",
         "source": "tvc_ai_torch/csrc/step_kernel.cu",
         "replaces": "tvc_ai_tpu/ops/pallas_step.py:73",
-        "launches": train_launches,
+        "launches": trainer_launches,
         "launches_by_path": {"env": env_launches, "rollout": main_launches,
-                             "train": train_launches},
+                             "train": train_launches, "eval": eval_launches,
+                             "trainer": trainer_launches},
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -706,6 +970,9 @@ def main() -> int:
         "library_ms": None,
         "floor_ms": floor_ms,
         "host_us": call_us,
+        "eval_step_ms": eval_step_ms,
+        "ms_by_n": {str(n): v[0] for n, v in small_n.items()},
+        "floor_ms_by_n": {str(n): v[1] for n, v in small_n.items()},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

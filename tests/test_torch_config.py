@@ -1,0 +1,198 @@
+"""The port's config tree, YAML loader and build functions against the JAX package's."""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import yaml
+
+from tvc_ai_torch.agents.sac import SACConfig
+from tvc_ai_torch.config import build as t_build
+from tvc_ai_torch.config import loader as t_loader
+from tvc_ai_torch.config.schema import FrameworkConfig
+from tvc_ai_torch.convert import env_params_from_numpy
+from tvc_ai_tpu.config import build as j_build
+from tvc_ai_tpu.config import loader as j_loader
+
+ROOT = Path(__file__).resolve().parent.parent
+JAX_CONFIGS = sorted((ROOT / "tvc_ai_tpu" / "config").glob("*.yaml"))
+
+
+def _jax_params(jcfg, stage=None):
+    """The JAX package's EnvParams for a config, as the port's type."""
+    return env_params_from_numpy(jax.tree.map(np.asarray, j_build.build_env_params(jcfg, stage)))
+
+
+def assert_params_equal(port, ref) -> None:
+    """Field by field: bools and ints exact, floats equal as float32."""
+    a, b = dataclasses.asdict(port), dataclasses.asdict(ref)
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            assert x.keys() == y.keys(), path
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif isinstance(x, float):
+            assert np.float32(x) == np.float32(y), (path, x, y)
+        else:
+            assert type(x) is type(y) and x == y, (path, x, y)
+
+    walk(a, b, "params")
+    assert port == ref
+
+
+@pytest.mark.parametrize("path", JAX_CONFIGS, ids=lambda p: p.name)
+def test_every_yaml_parses_as_in_jax(path):
+    assert t_loader.load_config(path).to_dict() == j_loader.load_config(path).to_dict()
+
+
+def test_default_yaml_is_a_copy():
+    port = t_loader.default_config_path()
+    ref = j_loader.default_config_path()
+    assert port.parent == ROOT / "tvc_ai_torch" / "config"
+    assert port.read_text() == ref.read_text()
+    assert yaml.safe_load(port.read_text()) == yaml.safe_load(ref.read_text())
+    assert t_loader.load_config(None).to_dict() == j_loader.load_config(None).to_dict()
+    assert FrameworkConfig().training.checkpointing.period == 25_000
+
+
+OVERRIDES = [
+    ["training.num_envs=64", "training.total_timesteps=5e5"],
+    ["algorithms.sac.lr_actor=3e-4", "algorithms.sac.hidden_dims=[64,32]"],
+    ["env.domain_randomization.enabled=false", "curriculum.enabled=off"],
+    ["curriculum.stages=[{name: a, episodes: 5}, {name: b, cg_offset_max: 0.02}]"],
+    ["training.checkpointing.period=50000", "network.history_len=3"],
+]
+
+
+@pytest.mark.parametrize("overrides", OVERRIDES, ids=lambda o: o[0].split("=")[0])
+def test_overrides_as_in_jax(overrides):
+    for path in (None, t_loader.default_config_path()):
+        port = t_loader.load_config(path, overrides)
+        assert port.to_dict() == j_loader.load_config(path, overrides).to_dict()
+
+
+def test_override_errors():
+    with pytest.raises(ValueError, match="key.path=value"):
+        t_loader.load_config(None, ["training.num_envs"])
+    with pytest.raises(KeyError, match="unknown config keys"):
+        t_loader.load_config(None, ["training.num_env=4"])
+    with pytest.raises(TypeError, match="cannot coerce"):
+        t_loader.load_config(None, ["training.num_envs=many"])
+    data = {"a": 1}
+    with pytest.raises(TypeError, match="non-mapping"):
+        t_loader.apply_override(data, "a.b", 2)
+
+
+def test_save_config_round_trip(tmp_path):
+    cfg = t_loader.load_config(t_loader.default_config_path(), ["training.num_envs=32"])
+    t_loader.save_config(cfg, tmp_path / "c.yaml")
+    assert t_loader.load_config(tmp_path / "c.yaml").to_dict() == cfg.to_dict()
+    assert cfg.training.checkpointing.period == 25_000
+
+
+def _variants() -> dict:
+    """name: (config edit, stage index or None), as the trainer builds them."""
+    out = {f"stage{i}": (lambda c: c, i) for i in [None, *range(5)]}
+
+    def nominal_eval(c):
+        c.env.domain_randomization.enabled = False
+        c.env.domain_randomization.sensor_noise_enabled = c.training.eval_sensor_noise
+        return c
+
+    def robust_eval(c):
+        c.env.domain_randomization.enabled = True
+        c.env.domain_randomization.dr_prob = 1.0
+        c.env.domain_randomization.sensor_noise_enabled = c.training.eval_sensor_noise
+        c.env.domain_randomization.feasible_only = False
+        return c
+
+    def stage_eval(c):
+        c.env.domain_randomization.dr_prob = 1.0
+        c.env.domain_randomization.sensor_noise_enabled = c.training.eval_sensor_noise
+        return c
+
+    def extras(c):
+        c.env.trim_observation.enabled = True
+        c.env.trim_observation.mode = "integral"
+        c.env.drift_observation.enabled = True
+        c.env.action_observation.enabled = True
+        c.env.max_gimbal_deg = 15.0
+        c.env.domain_randomization.progress_rate_min = 0.5
+        c.env.domain_randomization.init_omega_max = 0.3
+        return c
+
+    out.update(nominal_eval=(nominal_eval, None), robust_eval=(robust_eval, None),
+               stage_eval1=(stage_eval, 1), obs_channels=(extras, 2))
+    return out
+
+
+VARIANTS = _variants()
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_build_env_params_as_in_jax(name):
+    edit, stage = VARIANTS[name]
+    path = t_loader.default_config_path()
+    port = edit(t_loader.load_config(path))
+    ref = edit(j_loader.load_config(path))
+    t_stage = None if stage is None else copy.deepcopy(port.curriculum.stages[stage])
+    j_stage = None if stage is None else copy.deepcopy(ref.curriculum.stages[stage])
+    if name.startswith("stage_eval"):
+        for s in (t_stage, j_stage):
+            s.dr_prob = 1.0 if s.dr_prob is not None else None
+    assert_params_equal(t_build.build_env_params(port, t_stage), _jax_params(ref, j_stage))
+
+
+@pytest.mark.parametrize("overrides", [
+    [],
+    ["stability.enable_lr_scheduling=true", "stability.adaptive_tau=true",
+     "algorithms.sac.ent_coef=0.1", "algorithms.sac.ema_decay=0.999",
+     "training.update_interval=4", "training.updates_per_step=2"],
+    ["training.demo_seeding.enabled=true", "training.demo_seeding.bc_weight=0.5",
+     "training.demo_seeding.fraction=0.25", "safety.enabled=false",
+     "env.trim_observation.enabled=true", "network.history_len=2"],
+], ids=["default", "schedules", "demo_bc"])
+def test_sac_and_loop_configs_as_in_jax(overrides):
+    path = t_loader.default_config_path()
+    port = t_loader.load_config(path, overrides)
+    ref = j_loader.load_config(path, overrides)
+    t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
+    for f in dataclasses.fields(SACConfig):
+        assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
+    t_loop, j_loop = t_build.build_loop_config(port), j_build.build_loop_config(ref)
+    for f in dataclasses.fields(t_loop):
+        if f.name == "safety":
+            assert dataclasses.asdict(t_loop.safety) == dataclasses.asdict(j_loop.safety)
+        else:
+            assert getattr(t_loop, f.name) == getattr(j_loop, f.name), f.name
+
+
+UNPORTED = {
+    "dr_mixture": ["env.domain_randomization.dr_prob=0.5"],
+    "feasible_only": ["env.domain_randomization.feasible_only=true"],
+    "sensor_dropout": ["env.domain_randomization.sensor_dropout_prob=0.1"],
+    "actuator_delay": ["env.domain_randomization.actuator_delay=true"],
+    "survival_normalized": ["reward_function.survival_normalized_success=true"],
+    "equilibrium_shaping": ["reward_function.equilibrium_relative_shaping=true"],
+    "bfloat16": ["algorithms.sac.compute_dtype=bfloat16"],
+    "transformer": ["network.architecture_type=transformer"],
+    "curiosity": ["exploration.curiosity.enabled=true"],
+    "rnd": ["exploration.random_network_distillation.enabled=true"],
+    "physics_informed": ["physics_informed.enabled=true"],
+    "hierarchical": ["hierarchical_rl.enabled=true"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_options_fail_when_built(name):
+    cfg = t_loader.load_config(None, UNPORTED[name])
+    with pytest.raises(NotImplementedError):
+        t_build.build_env_params(cfg)
+        t_build.build_sac_config(cfg)
+        t_build.build_loop_config(cfg)

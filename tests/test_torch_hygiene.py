@@ -1,4 +1,5 @@
-"""tvc_ai_torch stands alone: no JAX, no tvc_ai_tpu, CUDA unless asked otherwise."""
+"""tvc_ai_torch stands alone: no JAX, no tvc_ai_tpu, CUDA unless asked otherwise,
+and the card's eval path integrates only through K1."""
 
 from __future__ import annotations
 
@@ -13,10 +14,15 @@ import torch
 import tvc_ai_torch
 from tvc_ai_torch.agents import sac
 from tvc_ai_torch.agents.replay import ReplayBuffer
+from tvc_ai_torch.config import load_config
 from tvc_ai_torch.convert import env_state_from_numpy, sac_state_from_numpy
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams
+from tvc_ai_torch.eval.evaluate import run_all_suites, run_suite
+from tvc_ai_torch.evaluate import main as evaluate_main
+from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training import loop
+from tvc_ai_torch.training.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = sorted(
@@ -38,7 +44,15 @@ def test_every_module_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert {"tvc_ai_torch.agents.optim", "tvc_ai_torch.agents.replay", "tvc_ai_torch.agents.sac",
-            "tvc_ai_torch.training.loop", "tvc_ai_torch.convert"} <= set(MODULES)
+            "tvc_ai_torch.training.loop", "tvc_ai_torch.convert",
+            "tvc_ai_torch.config.schema", "tvc_ai_torch.config.loader",
+            "tvc_ai_torch.config.build", "tvc_ai_torch.env.wrappers",
+            "tvc_ai_torch.eval.rollout", "tvc_ai_torch.eval.evaluate",
+            "tvc_ai_torch.training.curriculum", "tvc_ai_torch.training.hacking",
+            "tvc_ai_torch.training.stability", "tvc_ai_torch.training.trainer",
+            "tvc_ai_torch.utils.checkpoint", "tvc_ai_torch.utils.logging",
+            "tvc_ai_torch.utils.profiling", "tvc_ai_torch.train",
+            "tvc_ai_torch.evaluate"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -88,14 +102,21 @@ def _numpy_sac_state(cfg: sac.SACConfig) -> dict:
 
 
 ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_create",
-                "init_carry", "sac_state_from_numpy"]
+                "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites"]
+# a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
+TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
+        "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
+        "algorithms.sac.buffer_size=2048", "algorithms.sac.learning_starts=64",
+        "algorithms.sac.batch_size=16", "curriculum.enabled=false", "logging.tensorboard=false"]
+AGENT_DEVICE = "cuda" if torch.cuda.is_available() else "cpu"
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
-def test_entry_points_default_to_cuda(entry):
+def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device given an entry point asks for CUDA: it raises where
     there is none, and places its tensors on the card where there is one."""
     small = sac.SACConfig((8, 8), buffer_size=64)
+    agent = sac.init(10, 2, small, device=AGENT_DEVICE)
     calls = {
         "reset": lambda: rocket_env.reset(EnvParams(), 2)[1],
         "actor": lambda: next(sac.make_actor(10, 2, sac.SACConfig((8, 8))).parameters()),
@@ -108,12 +129,62 @@ def test_entry_points_default_to_cuda(entry):
             EnvParams(), small, loop.TrainLoopConfig(num_envs=4, rollout_steps=1)).obs,
         "sac_state_from_numpy": lambda: sac_state_from_numpy(
             _numpy_sac_state(small), small, 10, 2).log_alpha,
+        "trainer": lambda: Trainer(load_config(None, TINY), output_dir=tmp_path / "run").carry.obs,
+        "run_suite": lambda: run_suite(agent, small, "standard", num_episodes=2).stats.returns,
+        "run_all_suites": lambda: run_all_suites(
+            agent, small, tmp_path / "suites", episodes_scale=0.01)["stress"].stats.returns,
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["train", "evaluate"])
+def test_command_line_entry_points_default_to_cuda(entry, tmp_path):
+    """``python -m tvc_ai_torch.train`` / ``.evaluate`` ask for CUDA unless
+    ``--device cpu`` is given."""
+    out = tmp_path / "run"
+    if entry == "train":
+        run = lambda: train_main(["--output-dir", str(out), *TINY])  # noqa: E731
+    else:
+        Trainer(load_config(None, TINY), output_dir=out, device=AGENT_DEVICE).train()
+        run = lambda: evaluate_main(  # noqa: E731
+            ["--model_path", str(out / "checkpoints"), "--hidden", "16", "16",
+             "--episodes_scale", "0.01", "--output_dir", str(tmp_path / "eval")])
+    if torch.cuda.is_available():
+        assert run() == 0
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+
+
+def test_eval_path_reaches_physics_only_through_k1(monkeypatch):
+    """The evaluation rollout integrates through K1's wrapper (which launches
+    K1 on a CUDA tensor or raises); it never calls the plain integrator
+    itself. On the CPU the wrapper's plain route is what runs."""
+    from tvc_ai_torch.eval.rollout import make_eval_fn, make_trajectory_fn
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the eval path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    small = sac.SACConfig((8, 8))
+    agent = sac.init(10, 2, small, device="cpu")
+    params = EnvParams(max_episode_steps=40)
+    gen = torch.Generator().manual_seed(0)
+    stats = make_eval_fn(small, 3, check_every=10**9)(agent, gen, params)
+    make_trajectory_fn(small, 3)(agent, gen, params)
+    assert calls == ["cpu"] * 80 and stats.lengths.shape == (3,)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -19,7 +19,8 @@ tensors and otherwise draws them from ``generator`` on the device:
 
 ``batched_step_autoreset`` is the production path: pre-physics, the K1 CUDA
 kernel (``ops.step_kernel``; its plain version on CPU tensors), post-physics,
-then the masked autoreset.
+then the masked autoreset. ``batched_step`` is the same step without the
+autoreset (the evaluation rollout's); ``step`` is the plain reference.
 """
 
 from __future__ import annotations
@@ -419,6 +420,21 @@ def pallas_physics_ok(params: EnvParams) -> bool:
     return not (r.magnus_effect or r.ground_effect or r.gyroscopic)
 
 
+def batched_step(
+    states: EnvState,
+    actions: torch.Tensor,
+    params: EnvParams,
+    generator: torch.Generator | None = None,
+    n_imu: torch.Tensor | None = None,
+) -> tuple[EnvState, StepOutput]:
+    """The production N-env step without autoreset (the evaluation rollout's):
+    ``step`` with the integrate done by K1 whenever ``pallas_physics_ok``.
+    The opt-in physics terms K1 does not implement take the plain integrator.
+    On CPU tensors K1's wrapper runs its plain version."""
+    integrate = step_kernel if pallas_physics_ok(params) else physics_step
+    return _step(states, actions, params, integrate, generator, n_imu)
+
+
 def batched_step_autoreset(
     states: EnvState,
     actions: torch.Tensor,
@@ -432,6 +448,5 @@ def batched_step_autoreset(
     plain integrator for the opt-in terms K1 does not implement. On CPU
     tensors K1's wrapper runs its plain version.
     """
-    integrate = step_kernel if pallas_physics_ok(params) else physics_step
-    new_state, out = _step(states, actions, params, integrate, generator, n_imu)
+    new_state, out = batched_step(states, actions, params, generator, n_imu)
     return _finish_autoreset(new_state, out, params, generator, reset_draws)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
@@ -147,6 +148,27 @@ class EnvParams:
     drift_obs_vel_scale: float = 2.0
     drift_obs_pos_scale: float = 0.5
     action_obs_enabled: bool = False
+
+
+# the float fields the reference keeps as Python floats (static pytree fields)
+_PYTHON_FLOATS = frozenset({"dt"})
+
+
+def as_float32(obj):
+    """``obj`` (a frozen dataclass tree of scalars, e.g. ``EnvParams``) with
+    every float field rounded to float32, as the reference's arrays hold
+    them, except ``RocketParams.dt``, which the reference keeps as a Python
+    float."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            changes[f.name] = as_float32(v)
+        elif isinstance(v, float) and f.name not in _PYTHON_FLOATS:
+            changes[f.name] = float(np.float32(v))
+        elif isinstance(v, tuple):
+            changes[f.name] = tuple(float(np.float32(x)) for x in v)
+    return dataclasses.replace(obj, **changes)
 
 
 def obs_dim(params: EnvParams) -> int:

@@ -1,0 +1,65 @@
+"""Train a TVC policy with the PyTorch port — its main entry point.
+
+    python -m tvc_ai_torch.train --config tvc_ai_torch/config/default.yaml \\
+        [--device cuda|cpu] [--resume DIR] [--output-dir DIR] [--debug] \\
+        training.total_timesteps=500000 training.num_envs=2048
+
+The counterpart of ``scripts/train.py``: ``--config`` (default: the package's
+``config/default.yaml``), dotted overrides, ``--debug`` for a small fast run,
+and ``--resume`` from a checkpoint directory (a manager root or one step
+directory). It runs on CUDA unless ``--device cpu`` is given. Only
+``training.algorithm: sac`` is ported; ``ensemble``, ``ppo`` and ``td3``
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="TVC trainer (PyTorch/CUDA port)")
+    parser.add_argument("--config", type=str, default=None,
+                        help="YAML config path (default: the package's default.yaml)")
+    parser.add_argument("--debug", action="store_true", help="small fast run")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="checkpoint directory to resume from")
+    parser.add_argument("--output-dir", type=str, default=None)
+    parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
+                        help="cuda (default) or cpu")
+    parser.add_argument("overrides", nargs="*", help="dotted config overrides: a.b.c=value")
+    args = parser.parse_args(argv)
+
+    from tvc_ai_torch.config import default_config_path, load_config, save_config
+
+    cfg = load_config(args.config or default_config_path(), overrides=args.overrides)
+    algo = cfg.training.algorithm
+    if algo != "sac":
+        raise NotImplementedError(
+            f"training.algorithm={algo!r} is not ported; the ensemble, PPO and TD3 "
+            "trainers wait for ROADMAP module 10"
+        )
+    from tvc_ai_torch.training.trainer import Trainer
+
+    if args.debug:
+        cfg.globals.debug = True
+        cfg.training.total_timesteps = min(cfg.training.total_timesteps, 50_000)
+        cfg.training.num_envs = min(cfg.training.num_envs, 64)
+        cfg.training.rollout_steps = min(cfg.training.rollout_steps, 32)
+        cfg.logging.level = "DEBUG"
+
+    trainer = Trainer(cfg, output_dir=args.output_dir, resume=args.resume, device=args.device)
+    save_config(cfg, trainer.output_dir / "config.yaml")
+    result = trainer.train()
+    print(
+        f"final: success={result['eval_success_rate']:.2%} "
+        f"reward={result['eval_reward_mean']:.1f} "
+        f"steps/s={result['steps_per_sec']:,.0f}"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
