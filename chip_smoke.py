@@ -49,20 +49,38 @@ the card against the CPU over 64 steps, times and profiles the eval step at
 N = 20, counts how many outcomes differ over the full 1000-step horizon, and
 holds K1 against its plain version at N = 2, 20 and 50 beside its launch
 floor there. [9] runs ``training.trainer.Trainer`` at the default
-configuration for 3 iterations of 4096 envs x 128 steps with an eval round
+configuration for 2 iterations of 4096 envs x 128 steps with an eval round
 after each (per-stage seconds from its ``StageTimer``, train env steps/s,
 eval metrics, checkpoint bytes and save seconds), resumes from its final
-checkpoint into a 4th iteration with the restored carry and generators
+checkpoint into a 3rd iteration with the restored carry and generators
 checked bit for bit, and resumes once from a best step directory. [9b] runs
 the three evaluation suites (``eval.evaluate.run_all_suites``) at their full
 episode counts and horizons. The launch counter shows one K1 launch per
 env step of training and per step an eval ran.
 
+Phases [10], [10b] and [10c] drive the PPO+SAC+TD3 ensemble. [10] holds one
+``agents.ensemble.make_ensemble_iteration`` per acting member (ppo, sac,
+td3 and the performance-weighted blend) and the stand-alone
+``ppo.make_train_iteration`` on the card against the CPU: 64 envs x 16
+steps at the default widths, the learning gate open from the fourth step,
+the same draws, PPO over 4 epochs (at its default 10 a clip decision flips
+between the two and they part: printed, not held). [10b] runs
+``EnsembleTrainer`` on ``config/default.yaml`` with
+``training.algorithm=ensemble`` (4096 envs x 128 steps): one iteration with
+each actor forced (PPO's GAE and epochs timed alone, and one PPO
+update at 65,536 rows by CUDA events), each member's eval stage, a
+profiled voting window, one iteration through ``train()`` with its save and
+a bit-equal resume from ``ensemble_final.pt``, then
+``tvc_ai_torch.train.main`` for ``training.algorithm`` ppo and td3. [10c]
+trains ``config/ensemble_r4.yaml`` (512 envs, SAC batch 1024, 16 SAC + 16
+TD3 updates per step) with ``rollout_steps`` cut from 128 to 16 for two
+iterations.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
-launches of each path beside the contract's keys; ``launches`` is the
-trainer's, [9]); and, as the last line, ``{"ok": true,
+launches of each path, the ensemble's included, beside the contract's keys;
+``launches`` is the trainer's, [9]); and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code not 0, no result line); so
 does a host without CUDA.
 """
@@ -87,7 +105,7 @@ from pathlib import Path
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
 
-from tvc_ai_torch.agents import replay, sac
+from tvc_ai_torch.agents import ensemble, ppo, replay, sac, td3
 from tvc_ai_torch.config import build_env_params, build_sac_config, default_config_path, load_config
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
@@ -99,12 +117,14 @@ from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.training import loop
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
+from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training.trainer import Trainer
+from tvc_ai_torch.training.trainer_ensemble import FINAL_CHECKPOINT, EnsembleTrainer
 from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
 from tvc_ai_torch.utils.devices import set_parity_precision
 
 N_ENVS = 4096
-ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 8   # the shape of bench.py
+ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 4   # bench.py's call shape, 4 calls
 ROLLOUT_STEPS = 128
 PROFILE_STEPS = 32
 TRAIN_PROFILE_STEPS = 16
@@ -314,8 +334,8 @@ def assert_body_close(a: RigidBodyState, b: RigidBodyState, tol: dict, what: str
         torch.testing.assert_close(getattr(a, f), getattr(b, f), msg=f"{what} {f}", **tol)
 
 
-TRAINER_TOTAL = 1_572_864   # 3 iterations of 4096 envs x 128 steps
-RESUME_TOTAL = 2_097_152    # one more
+TRAINER_TOTAL = 1_048_576   # 2 iterations of 4096 envs x 128 steps
+RESUME_TOTAL = 1_572_864    # one more
 
 
 def counting_evals(trainer, record: list) -> None:
@@ -339,7 +359,7 @@ def dir_bytes(path: Path) -> int:
 
 
 def run_trainer(scratch: Path, dev) -> int:
-    """[9]: ``Trainer`` on the default config for 3 iterations, then resumed;
+    """[9]: ``Trainer`` on the default config for 2 iterations, then resumed;
     returns the first run's K1 launches."""
     cfg_path = default_config_path()
     cfg = load_config(cfg_path, [f"training.total_timesteps={TRAINER_TOTAL}"])
@@ -448,6 +468,356 @@ def run_suites(scratch: Path, dev, n_obs: int) -> int:
         f"{', evaluation_dashboard.png' if (out_dir / 'evaluation_dashboard.png').exists() else ''}"
         f" written; K1 launches {launches} == steps run")
     return launches
+
+
+ENS_N, ENS_STEPS = 64, 16            # [10] card vs CPU
+ENS_WEIGHTS = (0.2, 0.5, 0.3)        # the blend's performance weights in [10]
+PPO_HELD_EPOCHS = 4                  # [10] holds PPO card vs CPU over 4 epochs x 8 minibatches
+ONE_ITERATION = 4096 * 128           # env steps of one default-config iteration
+FLAGSHIP_STEPS = 16                  # [10c] rollout_steps, cut from 128
+
+
+def ensemble_draws(actor: str, cfg: ensemble.EnsembleConfig, params: EnvParams,
+                   gen: torch.Generator) -> list:
+    """Every draw of one [10] iteration on the CPU: the acting member's noise
+    (three for the blend), the env step's, and the replay rows and noise of
+    each update once the gate opens."""
+    gate = max(cfg.sac.learning_starts, cfg.sac.batch_size)
+    cpu = torch.device("cpu")
+    out = []
+    for t in range(ENS_STEPS):
+        size = (t + 1) * ENS_N
+        shape = (3, ENS_N, 2) if actor == "ensemble" else (ENS_N, 2)
+        step = StepDraws(n_act=torch.randn(shape, generator=gen),
+                         n_imu=torch.randn((ENS_N, 7), generator=gen),
+                         reset=rocket_env.draw_reset(params, ENS_N, cpu, gen))
+        learn = size >= gate
+        b_sac, b_td3 = cfg.sac.batch_size, cfg.td3.batch_size
+        out.append(ensemble.EnsembleStepDraws(
+            step=step,
+            sac=[SampleDraws(idx=torch.randint(0, size, (b_sac,), generator=gen),
+                             update=sac.UpdateDraws(n_next=torch.randn((b_sac, 2), generator=gen),
+                                                    n_pi=torch.randn((b_sac, 2), generator=gen)))
+                 ] if learn else [],
+            td3=[ensemble.TD3Draws(idx=torch.randint(0, size, (b_td3,), generator=gen),
+                                   noise=torch.randn((b_td3, 2), generator=gen))
+                 ] if learn else []))
+    return out
+
+
+MEMBER_NETS = {"sac": ("actor", "critic", "target_critic"),
+               "td3": ("actor", "critic", "target_actor", "target_critic"),
+               "ppo": ("actor", "value")}
+
+
+def member_param_err(a, b, hold: bool = True) -> float:
+    """Largest |card - CPU| over every parameter of every member; with
+    ``hold``, fails beyond PARAMS."""
+    err = 0.0
+    for member, names in MEMBER_NETS.items():
+        for net in names:
+            for (name, p), q in zip(getattr(getattr(a, member), net).named_parameters(),
+                                    getattr(getattr(b, member), net).parameters()):
+                if hold:
+                    torch.testing.assert_close(p.detach().cpu(), q.detach(), **PARAMS,
+                                               msg=f"{member}.{net}.{name}")
+                err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
+    if hold:
+        torch.testing.assert_close(a.sac.log_alpha.cpu(), b.sac.log_alpha, **PARAMS)
+    return err
+
+
+def ensemble_both(actor: str, cfg: ensemble.EnsembleConfig, short: EnvParams, seed: int):
+    """One [10] iteration of ``actor`` on the card and on the CPU from the
+    same initial state and draws: ((card carry, metrics), (CPU carry, metrics))."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed)
+    reset_draws = rocket_env.draw_reset(short, ENS_N, cpu, gen)
+    draws = ensemble_draws(actor, cfg, short, gen)
+    perms = [torch.randperm(ENS_STEPS * ENS_N, generator=gen) for _ in range(cfg.ppo.n_epochs)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        carry = ensemble.init_carry(short, cfg, ENS_N, device=where, seed=SEED,
+                                    reset_draws=to_device(reset_draws, where))
+        it = ensemble.make_ensemble_iteration(actor, cfg, ENS_N, ENS_STEPS)
+        out[where] = it(carry, ENS_WEIGHTS, short, to_device(draws, where),
+                        to_device(perms, where) if actor == "ppo" else None)
+    torch.cuda.synchronize()
+    return out["cuda"], out["cpu"]
+
+
+def ensemble_card_vs_cpu(short: EnvParams) -> float:
+    """[10]: one ``make_ensemble_iteration`` per acting member and the
+    stand-alone PPO iteration, card (K1) against CPU (plain), at default
+    widths; returns the largest parameter difference held.
+
+    PPO is held at 4 epochs (32 updates): at its default 10 the approximate
+    KL reaches ~0.7, a ratio crosses the clip edge on one side only, and the
+    two runs part (printed, not held, as [9a] prints its full horizon)."""
+    cfg = ensemble.EnsembleConfig(
+        sac=sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=ENS_STEPS * ENS_N,
+                                 learning_starts=4 * ENS_N)),
+        td3=td3.TD3Config(), ppo=ppo.PPOConfig(n_epochs=PPO_HELD_EPOCHS))
+    worst = 0.0
+    for i, actor in enumerate(ensemble.ACTORS):
+        (a, am), (b, bm) = ensemble_both(actor, cfg, short, SEED + 20 + i)
+        torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
+        for k in ("obs", "next_obs", "action"):
+            torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+        torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"],
+                                   **REWARD)
+        assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated"
+        for name in ("episodes", "successes", "ep_length"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
+        assert torch.equal(a.env_states.step_count.cpu(), b.env_states.step_count), "truncation"
+        for k in bm:
+            torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+        err = member_param_err(a, b)
+        worst = max(worst, err)
+        updates = (a.sac.step, a.td3.step, a.ppo.step)
+        assert updates == (b.sac.step, b.td3.step, b.ppo.step) and a.sac.step > 0, updates
+        log(f"[10] ensemble iteration, {actor} acting, {ENS_N} envs x {ENS_STEPS} steps, card "
+            f"(K1) vs CPU (plain): max |d obs| {float((a.obs.cpu() - b.obs).abs().max()):.3e}, "
+            f"terminations and episode ends equal ({int(b.episodes.sum())} episode ends), "
+            f"SAC/TD3/PPO updates {updates}, max |d param| over the three members {err:.3e} "
+            f"(atol {PARAMS['atol']}): ok")
+    # PPO at its default epochs: not held
+    full = dataclasses.replace(cfg, ppo=ppo.PPOConfig())
+    (a, am), (b, bm) = ensemble_both("ppo", full, short, SEED + 20)
+    log(f"[10] ensemble iteration, ppo acting, {full.ppo.n_epochs} epochs ({a.ppo.step} "
+        f"updates), not held: max |d param| over the three members "
+        f"{member_param_err(a, b, hold=False):.3e}; clip_fraction card "
+        f"{float(am['ppo_clip_fraction']):.6f}, CPU {float(bm['ppo_clip_fraction']):.6f}; "
+        f"approx_kl card {float(am['ppo_approx_kl']):.6f}, CPU {float(bm['ppo_approx_kl']):.6f}")
+    # the stand-alone PPO iteration, at the same bars
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    reset_draws = rocket_env.draw_reset(short, ENS_N, cpu, gen)
+    draws = [StepDraws(n_act=torch.randn((ENS_N, 2), generator=gen),
+                       n_imu=torch.randn((ENS_N, 7), generator=gen),
+                       reset=rocket_env.draw_reset(short, ENS_N, cpu, gen))
+             for _ in range(ENS_STEPS)]
+    perms = [torch.randperm(ENS_STEPS * ENS_N, generator=gen) for _ in range(cfg.ppo.n_epochs)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        states, obs = rocket_env.reset(short, ENS_N, device=where,
+                                       draws=to_device(reset_draws, where))
+        it = ppo.make_train_iteration(cfg.ppo, ENS_N, ENS_STEPS, obs.shape[-1], 2)
+        out[where] = it(ppo.init(obs.shape[-1], 2, cfg.ppo, device=where, seed=SEED), states,
+                        obs, None, short, to_device(draws, where), to_device(perms, where))
+    torch.cuda.synchronize()
+    (a, a_states, a_obs, _, am), (b, b_states, b_obs, _, bm) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(a_obs.cpu(), b_obs, **OBS)
+    assert torch.equal(a_states.step_count.cpu(), b_states.step_count), "truncation"
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    err = 0.0
+    for net in ("actor", "value"):
+        for (name, p), q in zip(getattr(a, net).named_parameters(), getattr(b, net).parameters()):
+            torch.testing.assert_close(p.detach().cpu(), q.detach(), **PARAMS,
+                                       msg=f"{net}.{name}")
+            err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
+    log(f"[10] ppo.make_train_iteration {ENS_N} envs x {ENS_STEPS} steps, {a.step} updates, card "
+        f"(K1) vs CPU (plain): max |d obs| {float((a_obs.cpu() - b_obs).abs().max()):.3e}, "
+        f"max |d param| {err:.3e}, success_rate {float(am['success_rate']):.4f} vs "
+        f"{float(bm['success_rate']):.4f}: ok")
+    return max(worst, err)
+
+
+def timed_ppo_learn(record: list):
+    """Context: ``ppo.learn`` (GAE and the epochs) timed alone, between two
+    synchronisations, each call appended to ``record`` as seconds."""
+    inner = ppo.learn
+
+    def learn(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        ppo.learn = learn
+        try:
+            yield
+        finally:
+            ppo.learn = inner
+
+    return patched()
+
+
+def run_ensemble_trainer(scratch: Path, dev) -> dict:
+    """[10b]: the ensemble trainer at the default config: one iteration with
+    each actor forced, each member's eval stage, a profiled voting window,
+    a trained iteration, its save and a bit-equal resume, then the ppo and
+    td3 command-line routes. Returns K1's launches by path."""
+    cfg = load_config(default_config_path(), ["training.algorithm=ensemble",
+                                              f"training.total_timesteps={ONE_ITERATION}"])
+    tr = EnsembleTrainer(cfg, output_dir=scratch / "ens", device=dev)
+    n, steps = cfg.training.num_envs, cfg.training.rollout_steps
+    launches: dict = {}
+    learn_s: list = []
+    for actor in ("sac", "td3", "ppo", "ensemble"):
+        before = (tr.carry.sac.step, tr.carry.td3.step, tr.carry.ppo.step)
+        torch.cuda.synchronize()
+        k1.step_kernel.launches = 0
+        t0 = time.perf_counter()
+        with timed_ppo_learn(learn_s):
+            tr.carry, metrics = tr._iterations[actor](tr.carry, tr.agent.weights_array(),
+                                                      tr.env_params)
+            values = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        path = f"ensemble_{'voting' if actor == 'ensemble' else actor}"
+        launches[path] = k1.step_kernel.launches
+        assert launches[path] == steps, (actor, launches)
+        assert all(map(math.isfinite, values.values())), values
+        done = (tr.carry.sac.step - before[0], tr.carry.td3.step - before[1],
+                tr.carry.ppo.step - before[2])
+        assert done[:2] == (steps, steps), done
+        phase = (f"; GAE + {cfg.algorithms.ppo.n_epochs} epochs x 8 minibatches of "
+                 f"{n * steps // 8} rows {learn_s[-1]:.4f} s ({done[2]} updates, "
+                 f"{learn_s[-1] / done[2] * 1e3:.3f} ms per update), rollout and off-policy "
+                 f"updates {sec - learn_s[-1]:.4f} s" if actor == "ppo" else "")
+        log(f"[10b] ensemble iteration, {actor} acting (default config, {n} envs x {steps} "
+            f"steps, 1 SAC + 1 TD3 update per step): {sec:.4f} s ({sec / steps * 1e3:.3f} ms "
+            f"per env step, {n * steps / sec:.1f} env steps/s){phase}; reward_mean "
+            f"{values['reward_mean']:.4f}, sac_critic_loss {values['sac_critic_loss']:.5g}, "
+            f"td3_critic_loss {values['td3_critic_loss']:.5g}; K1 launches {launches[path]}")
+    tr.agent.attach_carry(tr.carry)
+    # one PPO minibatch update at the default shape (65,536 rows) alone:
+    # device time by CUDA events against the host's time per call
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = n * steps // tr.ens_cfg.ppo.num_minibatches
+    obs = tr.carry.buffer.data["obs"][:rows]
+    _, pre_tanh, logp, _ = ppo.act(tr.carry.ppo, obs, generator=gen)
+    mb = {"obs": obs, "pre_tanh": pre_tanh, "log_prob": logp,
+          "advantage": torch.randn(rows, device=dev, generator=gen),
+          "return": torch.randn(rows, device=dev, generator=gen)}
+    ppo_ms = device_ms(lambda: ppo.update(tr.carry.ppo, mb, tr.ens_cfg.ppo), reps=20, inner=1)
+    ppo_host_ms = host_us(lambda: ppo.update(tr.carry.ppo, mb, tr.ens_cfg.ppo), reps=5,
+                          inner=5) / 1e3
+    log(f"[10b] one ppo.update at {rows} rows: device {ppo_ms:.4f} ms, host {ppo_host_ms:.4f} ms "
+        f"per call")
+    mem_mb = sum(t.numel() * t.element_size() for t in tr.carry.buffer.data.values()) / 1e6
+    log(f"[10b] shared replay {tr.carry.buffer.capacity} rows, {mem_mb:.1f} MB; device memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e6:.1f} MB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+
+    # the eval stage, each member timed and its K1 launches counted
+    for name, fn in list(tr._eval_fns.items()):
+        def counted(state, generator, params, draws=None, _fn=fn, _name=name):
+            torch.cuda.synchronize()
+            before, t0 = k1.step_kernel.launches, time.perf_counter()
+            stats = _fn(state, generator, params, draws)
+            ran = steps_run(stats.lengths, params.max_episode_steps)
+            used = k1.step_kernel.launches - before
+            assert used == ran, (_name, used, ran)
+            log(f"[10b] eval stage, {_name} member: {cfg.training.eval_episodes} episodes, "
+                f"{ran} steps before the early exit in {time.perf_counter() - t0:.4f} s; K1 "
+                f"launches {used}")
+            launches[f"ensemble_eval_{_name}"] = used
+            return stats
+        tr._eval_fns[name] = counted
+    t0 = time.perf_counter()
+    eval_metrics = tr.evaluate()
+    log(f"[10b] evaluate(): {time.perf_counter() - t0:.4f} s for the three members; "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(eval_metrics.items())
+                    if k.endswith(("success_rate", "reward_mean", "length_mean"))))
+
+    # the voting step under the profiler
+    prof_it = ensemble.make_ensemble_iteration("ensemble", tr.ens_cfg, n, TRAIN_PROFILE_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.carry, _ = prof_it(tr.carry, tr.agent.weights_array(), tr.env_params)
+        torch.cuda.synchronize()
+        vote_ms = (time.perf_counter() - t0) / TRAIN_PROFILE_STEPS * 1e3
+    device_breakdown(prof, TRAIN_PROFILE_STEPS, vote_ms, "[10b]",
+                     f"profiled voting iteration, {n} envs x {TRAIN_PROFILE_STEPS} steps")
+    del prof
+    gc.collect()
+
+    # one trained iteration through train(), its save, and the resume
+    tr.agent.attach_carry(tr.carry)
+    cfg.training.total_timesteps = tr.env_steps + ONE_ITERATION
+    result = tr.train()
+    final = scratch / "ens" / FINAL_CHECKPOINT
+    timing = result["stage_timing"]
+    assert result["iterations"] == 1 and final.exists(), (result["iterations"], final)
+    assert all(math.isfinite(v) for k, v in result.items() if k.startswith(("sac_", "td3_",
+                                                                            "ppo_"))), result
+    resumed = EnsembleTrainer(cfg, output_dir=scratch / "ens_resumed", resume=final, device=dev)
+    members = {m: getattr(tr.carry, m) for m in ensemble.ALGORITHMS}
+    diffs = diff_states(members, {m: getattr(resumed.carry, m) for m in ensemble.ALGORITHMS})
+    assert not diffs, diffs[:10]
+    assert resumed.agent.performance_history == tr.agent.performance_history
+    assert resumed.agent.algorithm_weights == tr.agent.algorithm_weights
+    log(f"[10b] train(): 1 iteration ({timing['train_iteration']['mean_sec']:.4f} s), eval "
+        f"{timing['evaluate']['total_sec']:.4f} s, save of {FINAL_CHECKPOINT} "
+        f"{timing['checkpoint']['total_sec']:.4f} s ({final.stat().st_size} B); resume: "
+        f"{len(flat_state(members))} leaves of the three members, the performance windows "
+        f"and the weights equal the saved ones bit for bit: ok")
+    resumed.logger.close()
+    del tr, resumed, members
+    gc.collect()
+
+    # the command-line routes, in process, on the card by default
+    for algo in ("ppo", "td3"):
+        out_dir = scratch / f"cli_{algo}"
+        k1.step_kernel.launches = 0
+        t0 = time.perf_counter()
+        rc = train_main(["--output-dir", str(out_dir), f"training.algorithm={algo}",
+                         f"training.total_timesteps={ONE_ITERATION}"])
+        sec = time.perf_counter() - t0
+        used = k1.step_kernel.launches
+        final_metrics = json.loads((out_dir / "final_metrics.json").read_text())
+        assert rc == 0 and (out_dir / FINAL_CHECKPOINT).exists(), (rc, out_dir)
+        assert final_metrics["env_steps"] == ONE_ITERATION, final_metrics["env_steps"]
+        # one iteration, an eval round after it and the final eval
+        assert used > steps, used
+        launches[f"cli_{algo}"] = used
+        log(f"[10b] python -m tvc_ai_torch.train training.algorithm={algo} (in process, "
+            f"default device): rc {rc}, {final_metrics['env_steps']} env steps, "
+            f"{sec:.3f} s in all (train_iteration "
+            f"{final_metrics['stage_timing']['train_iteration']['mean_sec']:.4f} s); "
+            f"eval_success_rate {final_metrics['eval_success_rate']:.3f}; K1 launches {used} "
+            f"({steps} train + {used - steps} eval steps)")
+    return launches
+
+
+def run_flagship(scratch: Path, dev) -> int:
+    """[10c]: ``ensemble_r4.yaml`` at its widths, rollout_steps cut to 16, two
+    iterations; returns K1's launches."""
+    path = default_config_path().parent / "ensemble_r4.yaml"
+    cfg = load_config(path, [f"training.rollout_steps={FLAGSHIP_STEPS}"])
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = 2 * n * FLAGSHIP_STEPS
+    tr = EnsembleTrainer(cfg, output_dir=scratch / "flagship", device=dev)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    used = k1.step_kernel.launches
+    timing = result["stage_timing"]["train_iteration"]
+    updates = tr.carry.sac.step + tr.carry.td3.step
+    per = cfg.training.updates_per_step
+    assert result["iterations"] == 2 and tr.carry.sac.step == tr.carry.td3.step, result
+    # every step from the one where the replay reaches the gate,
+    # max(learning_starts, batch size), takes its updates
+    gate = max(tr.ens_cfg.sac.learning_starts, tr.ens_cfg.sac.batch_size)
+    learned = sum((t + 1) * n >= gate for t in range(2 * FLAGSHIP_STEPS))
+    assert tr.carry.sac.step == per * learned, (tr.carry.sac.step, per, learned)
+    assert used >= 2 * FLAGSHIP_STEPS, used
+    log(f"[10c] {path.name} ({n} envs, SAC batch {tr.ens_cfg.sac.batch_size}, {per} SAC + "
+        f"{per} TD3 updates per step, selection_epsilon {tr.ens_cfg.selection_epsilon}; "
+        f"rollout_steps cut from 128 to {FLAGSHIP_STEPS}, a depth cut): 2 iterations, "
+        f"{timing['mean_sec']:.4f} s per iteration "
+        f"({timing['total_sec'] / 2 / FLAGSHIP_STEPS * 1e3:.3f} ms per env step), {updates} "
+        f"updates ({learned} of {2 * FLAGSHIP_STEPS} steps learn) in {timing['total_sec']:.4f} s = "
+        f"{updates / timing['total_sec']:.1f} updates/s; final eval of "
+        f"{cfg.training.eval_episodes} episodes x 3 members "
+        f"{result['stage_timing']['evaluate']['total_sec']:.4f} s; eval_success_rate "
+        f"{result['eval_success_rate']:.3f}; K1 launches {used}")
+    return used
 
 
 def main() -> int:
@@ -942,13 +1312,19 @@ def main() -> int:
             f"{tol['rtol']}) ok; {small_n[n][0]:.5f} ms, launch floor {small_n[n][1]:.5f} ms")
     del eval_agents, short_eval, full_eval
 
-    # ---- 9. the trainer at the default configuration, 3 iterations with an
+    # ---- 9. the trainer at the default configuration, 2 iterations with an
     # eval round after each, then resumed from its final checkpoint into a
-    # 4th, and once from a best step directory
+    # 3rd, and once from a best step directory
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
     try:
         trainer_launches = run_trainer(scratch, dev)
         eval_launches = run_suites(scratch, dev, n_obs)
+
+        # ---- 10. the ensemble: card vs CPU per acting member, the trainer
+        # at the default config, the flagship configuration
+        errs.append(ensemble_card_vs_cpu(short))
+        ensemble_launches = run_ensemble_trainer(scratch, dev)
+        ensemble_launches["flagship"] = run_flagship(scratch, dev)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -961,7 +1337,7 @@ def main() -> int:
         "launches": trainer_launches,
         "launches_by_path": {"env": env_launches, "rollout": main_launches,
                              "train": train_launches, "eval": eval_launches,
-                             "trainer": trainer_launches},
+                             "trainer": trainer_launches, **ensemble_launches},
         "max_abs_err": max(errs),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -196,3 +196,38 @@ def test_unported_options_fail_when_built(name):
         t_build.build_env_params(cfg)
         t_build.build_sac_config(cfg)
         t_build.build_loop_config(cfg)
+
+
+ENSEMBLE_YAMLS = ["ensemble_r3.yaml", "ensemble_r4.yaml"]
+
+
+@pytest.mark.parametrize("name", ENSEMBLE_YAMLS)
+def test_ensemble_yaml_is_a_copy(name):
+    port = ROOT / "tvc_ai_torch" / "config" / name
+    ref = ROOT / "tvc_ai_tpu" / "config" / name
+    assert port.read_text() == ref.read_text()
+    assert t_loader.load_config(port).to_dict() == j_loader.load_config(ref).to_dict()
+    assert t_loader.load_config(port).training.algorithm == "ensemble"
+
+
+@pytest.mark.parametrize("name", ["default.yaml", *ENSEMBLE_YAMLS])
+def test_build_ensemble_config_as_in_jax(name):
+    """Every field of the ensemble config and of its three members."""
+    from tvc_ai_torch.training.trainer_ensemble import build_ensemble_config as t_build_ens
+    from tvc_ai_tpu.training.trainer_ensemble import build_ensemble_config as j_build_ens
+
+    overrides = ["training.algorithm=ensemble"]
+    port = t_build_ens(t_loader.load_config(ROOT / "tvc_ai_torch" / "config" / name, overrides))
+    ref = j_build_ens(j_loader.load_config(ROOT / "tvc_ai_tpu" / "config" / name, overrides))
+    for f in dataclasses.fields(port):
+        if f.name in ("sac", "td3", "ppo"):
+            # every field the port has (its SACConfig leaves out the two
+            # the reference never reads)
+            a, b = getattr(port, f.name), getattr(ref, f.name)
+            for g in dataclasses.fields(a):
+                assert getattr(a, g.name) == getattr(b, g.name), (f.name, g.name)
+        else:
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    if name == "ensemble_r4.yaml":
+        assert (port.selection_epsilon, port.sac.batch_size, port.sac.alpha) == (0.2, 1024, 0.05)
+        assert not port.sac.automatic_entropy_tuning

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tvc_ai_torch
-from tvc_ai_torch.agents import sac
+from tvc_ai_torch.agents import ensemble, ppo, sac, td3
 from tvc_ai_torch.agents.replay import ReplayBuffer
 from tvc_ai_torch.config import load_config
 from tvc_ai_torch.convert import env_state_from_numpy, sac_state_from_numpy
@@ -23,6 +23,7 @@ from tvc_ai_torch.evaluate import main as evaluate_main
 from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training import loop
 from tvc_ai_torch.training.trainer import Trainer
+from tvc_ai_torch.training.trainer_ensemble import EnsembleTrainer
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = sorted(
@@ -52,7 +53,9 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.training.stability", "tvc_ai_torch.training.trainer",
             "tvc_ai_torch.utils.checkpoint", "tvc_ai_torch.utils.logging",
             "tvc_ai_torch.utils.profiling", "tvc_ai_torch.train",
-            "tvc_ai_torch.evaluate"} <= set(MODULES)
+            "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
+            "tvc_ai_torch.agents.ensemble",
+            "tvc_ai_torch.training.trainer_ensemble"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -102,7 +105,9 @@ def _numpy_sac_state(cfg: sac.SACConfig) -> dict:
 
 
 ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_create",
-                "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites"]
+                "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites",
+                "td3_init", "ppo_init", "ensemble_init_carry", "ensemble_agent",
+                "ensemble_trainer"]
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
 TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
         "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
@@ -133,6 +138,16 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "run_suite": lambda: run_suite(agent, small, "standard", num_episodes=2).stats.returns,
         "run_all_suites": lambda: run_all_suites(
             agent, small, tmp_path / "suites", episodes_scale=0.01)["stress"].stats.returns,
+        "td3_init": lambda: next(td3.init(10, 2, td3.TD3Config((8, 8))).actor.parameters()),
+        "ppo_init": lambda: ppo.init(10, 2, ppo.PPOConfig((8, 8))).opt.mu[0],
+        "ensemble_init_carry": lambda: ensemble.init_carry(
+            EnvParams(), ensemble.EnsembleConfig(sac=small, td3=td3.TD3Config((8, 8)),
+                                                 ppo=ppo.PPOConfig((8, 8))), 4).obs,
+        "ensemble_agent": lambda: torch.rand(1, generator=ensemble.MultiAlgorithmAgent(
+        ).generator, device="cuda"),
+        "ensemble_trainer": lambda: EnsembleTrainer(
+            load_config(None, [*TINY, "training.algorithm=ensemble"]),
+            output_dir=tmp_path / "ens").carry.obs,
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"
@@ -141,13 +156,18 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["train", "evaluate"])
+@pytest.mark.parametrize("entry", ["train", "evaluate", "train_ensemble", "train_ppo",
+                                   "train_td3"])
 def test_command_line_entry_points_default_to_cuda(entry, tmp_path):
-    """``python -m tvc_ai_torch.train`` / ``.evaluate`` ask for CUDA unless
-    ``--device cpu`` is given."""
+    """``python -m tvc_ai_torch.train`` (each ``training.algorithm`` route) /
+    ``.evaluate`` ask for CUDA unless ``--device cpu`` is given."""
     out = tmp_path / "run"
     if entry == "train":
         run = lambda: train_main(["--output-dir", str(out), *TINY])  # noqa: E731
+    elif entry.startswith("train_"):
+        algo = entry.removeprefix("train_")
+        run = lambda: train_main(  # noqa: E731
+            ["--output-dir", str(out), *TINY, f"training.algorithm={algo}"])
     else:
         Trainer(load_config(None, TINY), output_dir=out, device=AGENT_DEVICE).train()
         run = lambda: evaluate_main(  # noqa: E731
@@ -185,6 +205,37 @@ def test_eval_path_reaches_physics_only_through_k1(monkeypatch):
     stats = make_eval_fn(small, 3, check_every=10**9)(agent, gen, params)
     make_trajectory_fn(small, 3)(agent, gen, params)
     assert calls == ["cpu"] * 80 and stats.lengths.shape == (3,)
+
+
+def test_ensemble_path_reaches_physics_only_through_k1(monkeypatch):
+    """The ensemble iteration (every acting member) and the stand-alone PPO
+    iteration integrate through K1's wrapper, never the plain integrator."""
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the ensemble path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    cfg = ensemble.EnsembleConfig(
+        sac=sac.SACConfig((8, 8), batch_size=8, buffer_size=64, learning_starts=8),
+        td3=td3.TD3Config((8, 8), batch_size=8), ppo=ppo.PPOConfig((8, 8), n_epochs=1))
+    params = EnvParams(max_episode_steps=3)
+    for actor in ensemble.ACTORS:
+        carry = ensemble.init_carry(params, cfg, 4, device="cpu", seed=1)
+        carry, _ = ensemble.make_ensemble_iteration(actor, cfg, 4, 3)(carry, [1, 1, 1], params)
+        assert carry.sac.step == 2, actor   # the gate opens at the second step
+    gen = torch.Generator().manual_seed(0)
+    states, obs = rocket_env.reset(params, 4, "cpu", generator=gen)
+    ppo.make_train_iteration(cfg.ppo, 4, 3, 10, 2)(
+        ppo.init(10, 2, cfg.ppo, device="cpu"), states, obs, gen, params)
+    assert calls == ["cpu"] * (3 * len(ensemble.ACTORS) + 3)
 
 
 def test_chip_smoke_refuses_without_cuda():

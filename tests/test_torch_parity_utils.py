@@ -17,7 +17,11 @@ consumes, so both packages can be fed the same numbers:
   k_update, into (k_s, k_d, k_u, key); the replay rows are
   randint(k_s, (B - n_demo,), 0, max(size, 1)), the demo rows
   randint(k_d, (n_demo,), 0, max(demo size, 1)); ``sac.update`` splits k_u
-  into (k_next, k_pi), each drawing normal(·, (B, A)).
+  into (k_next, k_pi), each drawing normal(·, (B, A));
+- PPO epochs: each splits the key into (key, k_perm, k_up) and permutes the
+  T·N rows with permutation(k_perm, T·N);
+- where a JAX iteration vmaps ``rocket_env.step_autoreset`` itself (PPO,
+  the ensemble), ``record_env_keys`` records the env keys it receives.
 """
 
 from __future__ import annotations
@@ -137,6 +141,33 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
                 ))
         out.append(IterDraws(step=step, samples=samples))
     return out
+
+
+def permutations(key, rows: int, epochs: int) -> list[torch.Tensor]:
+    """The per-epoch permutations the reference draws from ``key``."""
+    out = []
+    for _ in range(epochs):
+        key, k_perm, _ = jax.random.split(key, 3)
+        out.append(to_torch(jax.random.permutation(k_perm, rows)).to(torch.int64))
+    return out
+
+
+def record_env_keys(fn, num_envs: int):
+    """Run ``fn()`` (which must build its JAX iteration inside: the
+    reference vmaps ``step_autoreset`` when it builds one) with the env keys
+    each ``step_autoreset`` receives recorded, in env order; returns (fn's
+    result, keys (steps, num_envs, 2))."""
+    keys, original = [], j_env.step_autoreset
+
+    def recording(state, action, params):
+        jax.debug.callback(lambda k: keys.append(np.asarray(k)), state.key, ordered=True)
+        return original(state, action, params)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_env, "step_autoreset", recording)
+        out = fn()
+        jax.effects_barrier()
+    return out, np.stack(keys).reshape(-1, num_envs, 2)
 
 
 def assert_state_close(t_state, j_state, atol=5e-5, rtol=5e-4, what=""):

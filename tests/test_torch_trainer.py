@@ -463,9 +463,24 @@ def test_unported_trainer_options_raise(tmp_path, option):
 
 
 @pytest.mark.parametrize("algo", ["ensemble", "ppo", "td3"])
-def test_train_entry_point_refuses_other_algorithms(tmp_path, algo):
-    with pytest.raises(NotImplementedError, match="module 10"):
+def test_train_entry_point_refuses_other_algorithms(tmp_path, algo, monkeypatch):
+    """These routes no longer raise ``NotImplementedError``: the SAC trainer
+    refuses them and they go to ``EnsembleTrainer`` as in ``scripts/train.py``
+    (ppo and td3 with that member forced to act), on the device asked for.
+    The routes themselves run in ``tests/test_torch_trainer_ensemble.py``."""
+    from tvc_ai_torch.training import trainer_ensemble
+
+    seen = {}
+
+    def stub(cfg, output_dir=None, resume=None, forced_actor=None, device="cuda"):
+        seen.update(algorithm=cfg.training.algorithm, forced_actor=forced_actor, device=device)
+        raise RuntimeError("stub trainer")
+
+    monkeypatch.setattr(trainer_ensemble, "EnsembleTrainer", stub)
+    with pytest.raises(RuntimeError, match="stub trainer"):
         train_main(["--device", "cpu", f"training.algorithm={algo}"])
+    assert seen == {"algorithm": algo, "forced_actor": None if algo == "ensemble" else algo,
+                    "device": "cpu"}
 
 
 def test_train_entry_point_on_cpu(tmp_path):

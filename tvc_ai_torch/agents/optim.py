@@ -1,7 +1,9 @@
-"""The SAC optimizers, written out: global-norm clipping, Adam, LR schedules.
+"""The learners' optimizers, written out: global-norm clipping, Adam, LR
+schedules, the Polyak target update.
 
 Counterpart of the optax chain ``tvc_ai_tpu/agents/sac.py::_optim`` builds,
-``chain(clip_by_global_norm(max_norm), adam(schedule))``, and of the plain
+``chain(clip_by_global_norm(max_norm), adam(schedule))`` (TD3's and PPO's
+``_optim`` are the same chain at a constant lr), and of the plain
 ``adam(lr)`` the temperature uses. Each step follows optax's order of
 operations over a list of tensors:
 
@@ -86,6 +88,14 @@ def adam_step(
     torch._foreach_div_(step, denom)
     torch._foreach_mul_(step, -float(np.float32(lr)))
     torch._foreach_add_(params, step)
+
+
+def polyak(targets: Sequence[torch.Tensor], params: Sequence[torch.Tensor], tau: float) -> None:
+    """targets ← targets · (1 − τ) + params · τ, in place (call under
+    ``torch.no_grad``)."""
+    targets = list(targets)
+    torch._foreach_mul_(targets, 1.0 - tau)
+    torch._foreach_add_(targets, list(params), alpha=tau)
 
 
 def make_schedule(

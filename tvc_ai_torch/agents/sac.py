@@ -145,7 +145,8 @@ def make_actor(
     return GaussianActor(obs_dim, action_dim, cfg.hidden_dims, device=device, seed=seed)
 
 
-def _frozen_copy(module: torch.nn.Module) -> torch.nn.Module:
+def frozen_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` that takes no gradient (a target network)."""
     return copy.deepcopy(module).requires_grad_(False)
 
 
@@ -166,13 +167,13 @@ def init(
     return SACState(
         actor=actor,
         critic=critic,
-        target_critic=_frozen_copy(critic),
+        target_critic=frozen_copy(critic),
         log_alpha=log_alpha,
         actor_opt=optim.adam_init(list(actor.parameters())),
         critic_opt=optim.adam_init(list(critic.parameters())),
         alpha_opt=optim.adam_init([log_alpha]),
         step=0,
-        ema_actor=_frozen_copy(actor) if cfg.ema_decay > 0 else None,
+        ema_actor=frozen_copy(actor) if cfg.ema_decay > 0 else None,
     )
 
 
@@ -284,10 +285,8 @@ def update(
 
     with torch.no_grad():
         # ---- soft target update, τ from the step before the increment
-        tau = effective_tau(cfg, state.step)
-        target_params = list(state.target_critic.parameters())
-        torch._foreach_mul_(target_params, 1.0 - tau)
-        torch._foreach_add_(target_params, critic_params, alpha=tau)
+        optim.polyak(state.target_critic.parameters(), critic_params,
+                     effective_tau(cfg, state.step))
         # ---- EMA shadow actor, after the actor step
         if cfg.ema_decay > 0 and state.ema_actor is not None:
             d = float(np.float32(cfg.ema_decay))

@@ -1,4 +1,5 @@
-"""Carry weights, optimizer, replay, env and loop state across from the JAX package.
+"""Carry weights, optimizer, replay, env and loop state across from the JAX package
+(the SAC loop's carry, and the ensemble's with its TD3 and PPO members).
 
 The inputs are plain host data: nested dicts, tuples (or attribute objects)
 whose leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing
@@ -14,9 +15,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from tvc_ai_torch.agents import optim, sac
+from tvc_ai_torch.agents import ensemble, optim, ppo, sac, td3
 from tvc_ai_torch.agents.replay import ReplayBuffer
 from tvc_ai_torch.env.types import (
+    ACTION_DIM,
     DomainParams,
     EnvParams,
     EnvState,
@@ -59,6 +61,16 @@ def actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def critic_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``TwinQ`` state dict (``q1.hidden_0.weight``, …) from flax critic params."""
+    return _dense_layers(params)
+
+
+def deterministic_actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``DeterministicActor`` state dict (``action_head``) from flax TD3 actor params."""
+    return _dense_layers(params)
+
+
+def value_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``ValueNetwork`` state dict (``v_head``) from flax value params."""
     return _dense_layers(params)
 
 
@@ -148,14 +160,23 @@ def _find_adam(opt_state: Any) -> Any:
     return None
 
 
-def _adam_state(opt_state: Any, module: torch.nn.Module, device: torch.device) -> optim.AdamState:
+def _adam_state(opt_state: Any, module: torch.nn.Module | tuple[torch.nn.Module, ...],
+                device: torch.device) -> optim.AdamState:
+    """The Adam state of one module's parameters, or of a tuple of modules'
+    whose optimizer holds a tuple of trees (PPO's (actor, value)), in the
+    modules' parameter order."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+    single = isinstance(module, torch.nn.Module)
+    modules = (module,) if single else tuple(module)
     moments = []
     for tree in (_get(adam, "mu"), _get(adam, "nu")):
-        state = _dense_layers(tree)
-        moments.append([state[name].to(device) for name, _ in module.named_parameters()])
+        trees = (tree,) if single else tuple(tree)
+        moments.append([])
+        for mod, sub in zip(modules, trees, strict=True):
+            state = _dense_layers(sub)
+            moments[-1] += [state[name].to(device) for name, _ in mod.named_parameters()]
     return optim.AdamState(mu=moments[0], nu=moments[1], count=int(np.asarray(_get(adam, "count"))))
 
 
@@ -236,5 +257,70 @@ def train_carry_from_numpy(
         generator=torch.Generator(device=dev).manual_seed(seed),
         obs_window=None if window is None else _tensor(window, dev),
         demo_buffer=None if demo is None else replay_from_numpy(demo, dev),
+        **{name: _tensor(_get(carry, name), dev) for name in counters},
+    )
+
+
+def td3_state_from_numpy(
+    state: Any,
+    cfg: td3.TD3Config,
+    obs_dim: int,
+    action_dim: int,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> td3.TD3State:
+    """``TD3State`` from a JAX ``TD3State`` mapped to numpy: the actor,
+    critic and both targets, the two optax states and ``step``."""
+    dev = resolve_device(device)
+    out = td3.init(obs_dim, action_dim, cfg, dev)
+    out.actor.load_state_dict(deterministic_actor_from_flax(_get(state, "actor_params")))
+    out.critic.load_state_dict(critic_from_flax(_get(state, "critic_params")))
+    out.target_actor.load_state_dict(
+        deterministic_actor_from_flax(_get(state, "target_actor_params")))
+    out.target_critic.load_state_dict(critic_from_flax(_get(state, "target_critic_params")))
+    out.actor_opt = _adam_state(_get(state, "actor_opt"), out.actor, dev)
+    out.critic_opt = _adam_state(_get(state, "critic_opt"), out.critic, dev)
+    out.step = int(np.asarray(_get(state, "step")))
+    return out
+
+
+def ppo_state_from_numpy(
+    state: Any,
+    cfg: ppo.PPOConfig,
+    obs_dim: int,
+    action_dim: int,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> ppo.PPOState:
+    """``PPOState`` from a JAX ``PPOState`` mapped to numpy: the actor, the
+    value network, the one optax state over both and ``step``."""
+    dev = resolve_device(device)
+    out = ppo.init(obs_dim, action_dim, cfg, dev)
+    out.actor.load_state_dict(actor_from_flax(_get(state, "actor_params")))
+    out.value.load_state_dict(value_from_flax(_get(state, "value_params")))
+    out.opt = _adam_state(_get(state, "opt_state"), (out.actor, out.value), dev)
+    out.step = int(np.asarray(_get(state, "step")))
+    return out
+
+
+def ensemble_carry_from_numpy(
+    carry: Any,
+    cfg: ensemble.EnsembleConfig,
+    device: str | torch.device = DEFAULT_DEVICE,
+    seed: int = 0,
+) -> ensemble.EnsembleCarry:
+    """``EnsembleCarry`` from a JAX ``EnsembleCarry`` mapped to numpy. The
+    key becomes a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    obs = _get(carry, "obs")
+    obs_dim, action_dim = np.shape(obs)[-1], ACTION_DIM
+    counters = ("env_steps", "episodes", "successes", "ep_return", "return_sum", "length_sum",
+                "ep_length")
+    return ensemble.EnsembleCarry(
+        env_states=env_state_from_numpy(_get(carry, "env_states"), dev),
+        obs=_tensor(obs, dev),
+        sac=sac_state_from_numpy(_get(carry, "sac"), cfg.sac, obs_dim, action_dim, dev),
+        td3=td3_state_from_numpy(_get(carry, "td3"), cfg.td3, obs_dim, action_dim, dev),
+        ppo=ppo_state_from_numpy(_get(carry, "ppo"), cfg.ppo, obs_dim, action_dim, dev),
+        buffer=replay_from_numpy(_get(carry, "buffer"), dev),
+        generator=torch.Generator(device=dev).manual_seed(seed),
         **{name: _tensor(_get(carry, name), dev) for name in counters},
     )

@@ -1,7 +1,8 @@
 """Tanh-squashed Gaussian policy head.
 
 Counterpart of ``tvc_ai_tpu/models/distributions.py``: reparameterized
-sampling and the change-of-variables log-prob in the stable softplus form
+sampling, the log-prob of a given pre-tanh action (PPO's ratio) and the
+change-of-variables log-prob in the stable softplus form
 log(1 - tanh²u) = 2·(log 2 - u - softplus(-2u)); log_std clamped to
 [-20, 2]. The standard-normal noise is explicit (``noise``), drawn from
 ``generator`` when not given.
@@ -38,6 +39,15 @@ def sample_and_log_prob(
     gauss_logp = -0.5 * (noise**2 + 2.0 * log_std + math.log(2.0 * math.pi))
     correction = 2.0 * (math.log(2.0) - pre_tanh - F.softplus(-2.0 * pre_tanh))
     return action, (gauss_logp - correction).sum(dim=-1)
+
+
+def log_prob(mean: torch.Tensor, log_std: torch.Tensor, pre_tanh: torch.Tensor) -> torch.Tensor:
+    """Log-prob of a given pre-tanh action under the tanh-Gaussian, summed over dims."""
+    log_std = clamp_log_std(log_std)
+    z = (pre_tanh - mean) / torch.exp(log_std)
+    gauss_logp = -0.5 * (z**2 + 2.0 * log_std + math.log(2.0 * math.pi))
+    correction = 2.0 * (math.log(2.0) - pre_tanh - F.softplus(-2.0 * pre_tanh))
+    return (gauss_logp - correction).sum(dim=-1)
 
 
 def deterministic_action(mean: torch.Tensor) -> torch.Tensor:

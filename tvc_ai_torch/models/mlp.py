@@ -1,13 +1,15 @@
-"""MLP actor and twin critics.
+"""MLP actors, twin critics and the value head.
 
 Counterpart of ``tvc_ai_tpu/models/mlp.py``: ``GaussianActor`` (a ReLU
-stack, then separate mean and log_std heads), ``QNetwork`` (concat(obs,
-action), a ReLU stack, a ``q_head`` of width 1, squeezed) and ``TwinQ``
-(submodules ``q1`` and ``q2``); orthogonal init with gain √2 and zero bias.
-Layer names match the flax modules' (``hidden_0``, …, ``mean_head``,
-``log_std_head``, ``q_head``) so ``convert.actor_from_flax`` and
-``convert.critic_from_flax`` map them one to one. ``DeterministicActor``
-and ``ValueNetwork`` come with the TD3/PPO slice.
+stack, then separate mean and log_std heads), ``DeterministicActor`` (a
+ReLU stack, then a tanh ``action_head``: TD3), ``QNetwork`` (concat(obs,
+action), a ReLU stack, a ``q_head`` of width 1, squeezed), ``TwinQ``
+(submodules ``q1`` and ``q2``) and ``ValueNetwork`` (a ReLU stack, a
+``v_head`` of width 1, squeezed: PPO); orthogonal init with gain √2 and
+zero bias, from a seeded CPU generator. Layer names match the flax
+modules' (``hidden_0``, …, ``mean_head``, ``log_std_head``,
+``action_head``, ``q_head``, ``v_head``) so the ``convert`` functions map
+them one to one.
 """
 
 from __future__ import annotations
@@ -73,6 +75,29 @@ class GaussianActor(nn.Module):
         return self.mean_head(x), self.log_std_head(x)
 
 
+class DeterministicActor(nn.Module):
+    """obs (N, obs_dim) → tanh action (N, action_dim) (the TD3 policy)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden_dims: Sequence[int] = (256, 256),
+        device: str | torch.device = DEFAULT_DEVICE,
+        seed: int = 0,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.hidden_dims = tuple(hidden_dims)
+        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
+        self.action_head = _dense(width, action_dim, gen)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.action_head(_relu_stack(self, obs)))
+
+
 class QNetwork(nn.Module):
     """(obs (N, obs_dim), action (N, action_dim)) → Q (N,)."""
 
@@ -108,3 +133,25 @@ class TwinQ(nn.Module):
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return self.q1(obs, action), self.q2(obs, action)
+
+
+class ValueNetwork(nn.Module):
+    """obs (N, obs_dim) → V (N,) (the PPO baseline)."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        hidden_dims: Sequence[int] = (256, 256),
+        device: str | torch.device = DEFAULT_DEVICE,
+        seed: int = 0,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.hidden_dims = tuple(hidden_dims)
+        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
+        self.v_head = _dense(width, 1, gen)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.v_head(_relu_stack(self, obs))[..., 0]

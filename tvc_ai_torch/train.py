@@ -7,14 +7,17 @@
 The counterpart of ``scripts/train.py``: ``--config`` (default: the package's
 ``config/default.yaml``), dotted overrides, ``--debug`` for a small fast run,
 and ``--resume`` from a checkpoint directory (a manager root or one step
-directory). It runs on CUDA unless ``--device cpu`` is given. Only
-``training.algorithm: sac`` is ported; ``ensemble``, ``ppo`` and ``td3``
-raise ``NotImplementedError``.
+directory; for the ensemble routes, an ``ensemble_final.pt`` file). It runs
+on CUDA unless ``--device cpu`` is given. ``training.algorithm`` picks the
+trainer as the reference does: ``ensemble`` runs ``EnsembleTrainer``,
+``ppo`` and ``td3`` run it with that member forced to act, anything else
+runs the fused SAC ``Trainer``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
 
@@ -25,7 +28,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="YAML config path (default: the package's default.yaml)")
     parser.add_argument("--debug", action="store_true", help="small fast run")
     parser.add_argument("--resume", type=str, default=None,
-                        help="checkpoint directory to resume from")
+                        help="checkpoint directory to resume from (ensemble routes: a file)")
     parser.add_argument("--output-dir", type=str, default=None)
     parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
                         help="cuda (default) or cpu")
@@ -36,12 +39,13 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg = load_config(args.config or default_config_path(), overrides=args.overrides)
     algo = cfg.training.algorithm
-    if algo != "sac":
-        raise NotImplementedError(
-            f"training.algorithm={algo!r} is not ported; the ensemble, PPO and TD3 "
-            "trainers wait for ROADMAP module 10"
-        )
-    from tvc_ai_torch.training.trainer import Trainer
+    if algo in ("ensemble", "ppo", "td3"):
+        from tvc_ai_torch.training.trainer_ensemble import EnsembleTrainer
+
+        Trainer = functools.partial(EnsembleTrainer,
+                                    forced_actor=None if algo == "ensemble" else algo)
+    else:  # sac (default): the dedicated fused SAC trainer
+        from tvc_ai_torch.training.trainer import Trainer
 
     if args.debug:
         cfg.globals.debug = True

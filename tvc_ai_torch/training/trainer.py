@@ -61,14 +61,20 @@ from tvc_ai_torch.utils.logging import TrainingLogger, make_output_dir
 from tvc_ai_torch.utils.profiling import StageTimer
 
 
-def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for the trainer options not ported yet."""
+def check_single_device(cfg: FrameworkConfig, device: torch.device) -> None:
+    """Raise ``NotImplementedError`` where the reference would train data
+    parallel over several devices (not ported yet)."""
     if (device.type == "cuda" and torch.cuda.device_count() > 1
             and cfg.hardware.mesh_devices != 1):
         raise NotImplementedError(
             "data-parallel training over several CUDA devices waits for "
             "parallel/mesh.py (ROADMAP module 9); set hardware.mesh_devices=1"
         )
+
+
+def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
+    """Raise ``NotImplementedError`` for the trainer options not ported yet."""
+    check_single_device(cfg, device)
     if cfg.training.warm_start_actor:
         raise NotImplementedError(
             "training.warm_start_actor reads a flax msgpack student, which this "
