@@ -76,6 +76,19 @@ trains ``config/ensemble_r4.yaml`` (512 envs, SAC batch 1024, 16 SAC + 16
 TD3 updates per step) with ``rollout_steps`` cut from 128 to 16 for two
 iterations.
 
+Phases [11a], [11b] and [11c] drive the robust-training env options
+(feasible-only draws, the easy/hard mixture, sensor dropout, actuator delay,
+the survival-normalized payout, equilibrium-relative shaping). [11a] holds
+``batched_step_autoreset`` with every option on against the CPU (256 envs x
+32 steps of 8-step episodes, the same draws) and prints the shares of resets
+that took the nominal fallback or were gated to the nominal plant, and of
+dropped readings. [11b] trains ``config/robust_full_r4d.yaml`` at its widths
+(512 envs, SAC batch 1024, 16 updates per step) with ``rollout_steps`` cut
+from 128 to 16 for two iterations and its final eval (nominal, robust,
+stage), times the env step with the options on against the same step with
+them off in turns, and profiles 4 learning steps; [11c] resumes it bit for
+bit.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
@@ -107,7 +120,7 @@ from torch.profiler import DeviceType, ProfilerActivity, profile
 
 from tvc_ai_torch.agents import ensemble, ppo, replay, sac, td3
 from tvc_ai_torch.config import build_env_params, build_sac_config, default_config_path, load_config
-from tvc_ai_torch.env import rocket_env
+from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.eval.evaluate import _suite_env_params, run_all_suites
 from tvc_ai_torch.eval.rollout import EvalDraws, make_eval_fn, steps_run, summarize_stats
@@ -124,7 +137,7 @@ from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
 from tvc_ai_torch.utils.devices import set_parity_precision
 
 N_ENVS = 4096
-ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 4   # bench.py's call shape, 4 calls
+ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 2   # bench.py's call shape, 2 calls
 ROLLOUT_STEPS = 128
 PROFILE_STEPS = 32
 TRAIN_PROFILE_STEPS = 16
@@ -242,6 +255,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+PHASE_STARTS: list[tuple[str, float]] = []
+
+
+def phase(name: str) -> None:
+    """Mark the start of phase ``name`` (its seconds are printed at the end)."""
+    PHASE_STARTS.append((name, time.perf_counter()))
+
+
+def phase_seconds() -> str:
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    return ", ".join(f"{name} {end - start:.1f}"
+                     for (name, start), end in zip(PHASE_STARTS, ends))
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -284,12 +311,14 @@ def random_physics_batch(n: int, gen: torch.Generator, dev, ground: bool = False
     return state, ctrl, dr
 
 
-def device_breakdown(prof, steps: int, step_ms: float, tag: str, what: str) -> dict:
+def device_breakdown(prof, steps: int, step_ms: float, tag: str, what: str,
+                     top: int = 15) -> dict:
     """From a ``torch.profiler`` run of ``steps`` steps: the device's busy
     time per step (the union of its kernel and copy intervals), its idle
     share of ``step_ms``, device operations per step, K1's device time and
-    the 15 kernels that take the most device time, logged under ``tag``.
-    Returns the device milliseconds per step by kernel name."""
+    the ``top`` kernels that take the most device time, logged under ``tag``.
+    Returns the device milliseconds per step by kernel name, with the busy
+    time under ``"busy"`` and the operations per step under ``"ops"``."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -307,9 +336,10 @@ def device_breakdown(prof, steps: int, step_ms: float, tag: str, what: str) -> d
         f"device operations per step; K1 "
         f"{sum(sum(d) for n, d in by_name.items() if 'step_kernel' in n) / steps:.5f} "
         f"ms per step")
-    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
+    for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
         log(f"{tag} {sum(durs) / steps:9.5f} ms/step {len(durs) / steps:6.1f}x {name[:90]}")
-    return {name: sum(durs) / steps for name, durs in by_name.items()}
+    return {**{name: sum(durs) / steps for name, durs in by_name.items()},
+            "busy": busy_ms, "ops": len(spans) / steps}
 
 
 def to_device(d, where):
@@ -474,6 +504,7 @@ ENS_N, ENS_STEPS = 64, 16            # [10] card vs CPU
 ENS_WEIGHTS = (0.2, 0.5, 0.3)        # the blend's performance weights in [10]
 PPO_HELD_EPOCHS = 4                  # [10] holds PPO card vs CPU over 4 epochs x 8 minibatches
 ONE_ITERATION = 4096 * 128           # env steps of one default-config iteration
+CLI_STEPS = 32                       # [10b] the CLI routes' rollout_steps, cut from 128
 FLAGSHIP_STEPS = 16                  # [10c] rollout_steps, cut from 128
 
 
@@ -762,23 +793,27 @@ def run_ensemble_trainer(scratch: Path, dev) -> dict:
     del tr, resumed, members
     gc.collect()
 
-    # the command-line routes, in process, on the card by default
+    # the command-line routes, in process, on the card by default, one
+    # iteration each with rollout_steps cut to CLI_STEPS (a depth cut)
+    steps = CLI_STEPS
     for algo in ("ppo", "td3"):
         out_dir = scratch / f"cli_{algo}"
         k1.step_kernel.launches = 0
         t0 = time.perf_counter()
         rc = train_main(["--output-dir", str(out_dir), f"training.algorithm={algo}",
-                         f"training.total_timesteps={ONE_ITERATION}"])
+                         f"training.rollout_steps={steps}",
+                         f"training.total_timesteps={n * steps}"])
         sec = time.perf_counter() - t0
         used = k1.step_kernel.launches
         final_metrics = json.loads((out_dir / "final_metrics.json").read_text())
         assert rc == 0 and (out_dir / FINAL_CHECKPOINT).exists(), (rc, out_dir)
-        assert final_metrics["env_steps"] == ONE_ITERATION, final_metrics["env_steps"]
+        assert final_metrics["env_steps"] == n * steps, final_metrics["env_steps"]
         # one iteration, an eval round after it and the final eval
         assert used > steps, used
         launches[f"cli_{algo}"] = used
         log(f"[10b] python -m tvc_ai_torch.train training.algorithm={algo} (in process, "
-            f"default device): rc {rc}, {final_metrics['env_steps']} env steps, "
+            f"default device, rollout_steps {steps}): rc {rc}, {final_metrics['env_steps']} "
+            f"env steps, "
             f"{sec:.3f} s in all (train_iteration "
             f"{final_metrics['stage_timing']['train_iteration']['mean_sec']:.4f} s); "
             f"eval_success_rate {final_metrics['eval_success_rate']:.3f}; K1 launches {used} "
@@ -820,6 +855,296 @@ def run_flagship(scratch: Path, dev) -> int:
     return used
 
 
+ROBUST_YAML = "robust_full_r4d.yaml"
+ROBUST_N, ROBUST_STEPS = 256, 32       # [11a] card vs CPU, 8-step episodes
+ROBUST_DROPOUT = 0.05                  # [11a]: raised from 0.01 so that drops occur
+# [11a]'s success window: looser and 3 steps long, so that first successes
+# (and with them the survival payout) occur within 8-step episodes beside
+# truncations and crashes
+ROBUST_SUCCESS = dict(max_tilt_angle=0.15, max_angular_velocity=2.0, max_horizontal_velocity=2.0,
+                      max_vertical_velocity=3.0, min_altitude=0.2, max_altitude=5.0,
+                      success_duration=3)
+ROBUST_ROLLOUT = 16                    # [11b] rollout_steps, cut from 128
+ROBUST_PROFILE_STEPS = 4               # [11b] profiled env steps once learning is on
+OPTION_STEPS = 32                      # [11b] env steps per timed window, options on / off
+
+
+def robust_config(overrides=()):
+    return load_config(default_config_path().parent / ROBUST_YAML,
+                       [f"training.rollout_steps={ROBUST_ROLLOUT}", *overrides])
+
+
+def options_off(params: EnvParams) -> EnvParams:
+    """``params`` with the six robust-training env options off."""
+    return dataclasses.replace(
+        params,
+        randomization=dataclasses.replace(
+            params.randomization, feasible_only=False, dr_mixture_enabled=False,
+            sensor_dropout_enabled=False, actuator_delay=False),
+        reward=dataclasses.replace(params.reward, survival_normalized_success=False,
+                                   equilibrium_relative_shaping=False))
+
+
+def reset_shares(params: EnvParams, draws, applied: torch.Tensor) -> tuple[int, int, int]:
+    """Of the resets of ``draws`` that ``applied`` (N,) selects: how many,
+    how many took the nominal fallback (no feasible candidate, gated hard)
+    and how many the mixture gated to the nominal plant."""
+    rnd = params.randomization
+    ok = randomization.feasible_candidates(params.rocket, rnd, draws.u_feas, draws.n_feas)[3]
+    hard = randomization.mixture_hard(rnd, draws.u_dr)
+    return (int(applied.sum()), int((applied & hard & ~ok.any(dim=1)).sum()),
+            int((applied & ~hard).sum()))
+
+
+def robust_card_vs_cpu(dev) -> None:
+    """[11a]: ``batched_step_autoreset`` with every robust-training option on,
+    card (K1) against CPU (plain) on the same draws, 256 envs x 32 steps of
+    8-step episodes with a looser 3-step success window: the env bars, ``dr``
+    at 1e-6 (the feasible candidate and the mixture gate chosen alike) and
+    the held readings of the dropped steps equal on both."""
+    cfg = robust_config()
+    base = build_env_params(cfg)
+    params = dataclasses.replace(
+        base, max_episode_steps=8, success=dataclasses.replace(base.success, **ROBUST_SUCCESS),
+        randomization=dataclasses.replace(base.randomization, sensor_dropout_prob=ROBUST_DROPOUT),
+        reward=dataclasses.replace(base.reward, equilibrium_relative_shaping=True))
+    rnd = params.randomization
+    assert (rnd.feasible_only and rnd.dr_mixture_enabled and rnd.sensor_dropout_enabled
+            and rnd.actuator_delay and rnd.sensor_noise_uniform and rnd.progress_rate_randomized
+            and params.reward.survival_normalized_success and params.drift_obs_enabled), params
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 40)
+    n = ROBUST_N
+    reset0 = rocket_env.draw_reset(params, n, cpu, gen)
+    steps = [dict(actions=torch.rand((n, 2), generator=gen) * 2.0 - 1.0,
+                  n_imu=torch.randn((n, 7), generator=gen),
+                  u_drop=torch.rand((n,), generator=gen),
+                  reset_draws=rocket_env.draw_reset(params, n, cpu, gen))
+             for _ in range(ROBUST_STEPS)]
+    runs = []
+    for where in (dev, cpu):
+        states, _ = rocket_env.reset(params, n, device=where, draws=to_device(reset0, where))
+        k1.step_kernel.launches = 0
+        rows = []
+        for d in steps:
+            prev = states
+            states, out, nxt = rocket_env.batched_step_autoreset(
+                states, d["actions"].to(where), params, n_imu=d["n_imu"].to(where),
+                reset_draws=to_device(d["reset_draws"], where), u_drop=d["u_drop"].to(where))
+            rows.append((prev, out, nxt, states))
+        runs.append((rows, k1.step_kernel.launches))
+    torch.cuda.synchronize()
+    (card, card_launches), (host, host_launches) = runs
+    assert (card_launches, host_launches) == (ROBUST_STEPS, 0), (card_launches, host_launches)
+    worst = dict(obs=0.0, reward=0.0, dr=0.0)
+    applied = [torch.ones(n, dtype=torch.bool)]
+    for t, ((a_prev, a, a_next, a_s), (b_prev, b, b_next, b_s)) in enumerate(zip(card, host)):
+        what = f"[11a] step {t}"
+        torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS, msg=what)
+        torch.testing.assert_close(a_next.cpu(), b_next, **OBS, msg=what)
+        torch.testing.assert_close(a.reward.cpu(), b.reward, **REWARD, msg=what)
+        for flag in ("terminated", "truncated", "mission_success", "crashed"):
+            assert torch.equal(getattr(a, flag).cpu(), getattr(b, flag)), f"{what} {flag}"
+        for f in dataclasses.fields(a_s.dr):
+            torch.testing.assert_close(getattr(a_s.dr, f.name).cpu(), getattr(b_s.dr, f.name),
+                                       atol=1e-6, rtol=1e-6, msg=f"{what} dr.{f.name}")
+            worst["dr"] = max(worst["dr"], float(
+                (getattr(a_s.dr, f.name).cpu() - getattr(b_s.dr, f.name)).abs().max()))
+        torch.testing.assert_close(a_s.prev_imu.cpu(), b_s.prev_imu, **OBS, msg=what)
+        drop = steps[t]["u_drop"] < rnd.sensor_dropout_prob
+        assert torch.equal(a.obs[:, :7].cpu()[drop], a_prev.prev_imu.cpu()[drop]), what
+        assert torch.equal(b.obs[:, :7][drop], b_prev.prev_imu[drop]), what
+        worst["obs"] = max(worst["obs"], float((a.obs.cpu() - b.obs).abs().max()))
+        worst["reward"] = max(worst["reward"], float((a.reward.cpu() - b.reward).abs().max()))
+        applied.append(b.terminated | b.truncated)
+    counts = [reset_shares(params, d, m) for d, m in
+              zip([reset0] + [d["reset_draws"] for d in steps], applied)]
+    resets, fallback, gated = (sum(c[i] for c in counts) for i in range(3))
+    drops = sum(int((d["u_drop"] < rnd.sensor_dropout_prob).sum()) for d in steps)
+    paid = sum(int((b.mission_success & ~b_prev.mission_success).sum())
+               for b_prev, b, _, _ in host)
+    assert fallback > 0 and gated > 0 and drops > 0 and paid > 0, (fallback, gated, drops, paid)
+    log(f"[11a] batched_step_autoreset, every robust-training option on ({ROBUST_YAML}'s box, "
+        f"feasible_only x{rnd.feasible_tries}, dr_prob {rnd.dr_prob:.3g}, dropout "
+        f"{rnd.sensor_dropout_prob:.3g}, actuator delay, survival payout, equilibrium shaping, noise "
+        f"uniform, progress-rate DR, drift obs), {n} envs x {ROBUST_STEPS} steps, card (K1) vs "
+        f"CPU (plain): max |d obs| {worst['obs']:.3e}, max |d reward| {worst['reward']:.3e}, "
+        f"max |d dr| {worst['dr']:.3e}; flags, feasible choice, mixture gate and held readings "
+        f"equal; K1 launches {card_launches}: ok")
+    log(f"[11a] shares: {fallback} of {resets} resets took the nominal fallback "
+        f"({fallback / resets:.2%}), {gated} of {resets} were gated to the nominal plant by the "
+        f"mixture ({gated / resets:.2%}), {drops} of {n * ROBUST_STEPS} readings dropped "
+        f"({drops / (n * ROBUST_STEPS):.2%}); {paid} first-success steps (each with the "
+        f"survival payout)")
+
+
+def counted_feasibility() -> tuple[contextlib.AbstractContextManager, dict]:
+    """A context in which every feasible-only domain draw adds, on the
+    device (no host read), its draws and those with no feasible candidate
+    to ``counts``."""
+    counts: dict = {}
+    inner = randomization.feasible_draw_mask
+
+    def mask(*args, **kwargs):
+        ok = inner(*args, **kwargs)
+        none = (~ok.any(dim=1)).sum()
+        counts["none"] = counts["none"] + none if "none" in counts else none
+        counts["draws"] = counts.get("draws", 0) + ok.shape[0]
+        return ok
+
+    @contextlib.contextmanager
+    def patched():
+        randomization.feasible_draw_mask = mask
+        try:
+            yield
+        finally:
+            randomization.feasible_draw_mask = inner
+
+    return patched(), counts
+
+
+def run_robust_trainer(scratch: Path, dev, overrides=()) -> int:
+    """[11b] and [11c]: ``Trainer`` on ``robust_full_r4d.yaml`` at its widths
+    with ``rollout_steps`` cut to 16, two iterations and its final eval
+    (nominal, robust, stage); the options' own cost on the env step timed
+    in turns; a profiled window of 4 learning steps; the resume from the
+    final checkpoint, bit for bit. Returns the two iterations' K1 launches."""
+    cfg = robust_config(overrides)
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = 2 * n * ROBUST_ROLLOUT
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, output_dir=scratch / "robust", device=dev)
+    rnd = tr.env_params.randomization
+    evals: list = []
+    counting_evals(tr, evals)
+    feasibility, feas_counts = counted_feasibility()
+    k1.step_kernel.launches = 0
+    with feasibility:
+        result = tr.train()
+    launches = k1.step_kernel.launches
+    timing = result["stage_timing"]
+    iters = result["iterations"]
+    assert iters == 2 and result["env_steps"] == 2 * n * ROBUST_ROLLOUT, result
+    assert launches == iters * ROBUST_ROLLOUT + sum(k for k, _, _ in evals), (launches, evals)
+    assert len(evals) == 3, evals    # the final eval: nominal, robust, stage
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    per = cfg.training.updates_per_step
+    learned = sum((t + 1) * n >= tr.sac_cfg.learning_starts for t in range(2 * ROBUST_ROLLOUT))
+    assert tr.carry.agent.step == per * learned, (tr.carry.agent.step, per, learned)
+    train_s = timing["train_iteration"]["total_sec"]
+    data = tr.carry.buffer.data
+    rows = tr.carry.buffer.size
+    dropped = int((data["next_obs"][:rows, :7] == data["obs"][:rows, :7]).all(dim=1).sum())
+    none = int(feas_counts["none"])
+    log(f"[11b] {ROBUST_YAML} ({n} envs, SAC batch {tr.sac_cfg.batch_size}, {per} updates per "
+        f"step, obs {tr.loop_cfg.obs_dim} with drift, curriculum stage {tr.curriculum.stage_idx}: "
+        f"feasible_only {rnd.feasible_only} x{rnd.feasible_tries}, mixture "
+        f"{rnd.dr_mixture_enabled} (dr_prob {rnd.dr_prob:.3g}), dropout "
+        f"{rnd.sensor_dropout_prob:.3g}, "
+        f"actuator delay {rnd.actuator_delay}, survival payout "
+        f"{tr.env_params.reward.survival_normalized_success}; rollout_steps cut from 128 to "
+        f"{ROBUST_ROLLOUT}, a depth cut): {iters} iterations, "
+        f"{timing['train_iteration']['mean_sec']:.4f} s per iteration "
+        f"({train_s / iters / ROBUST_ROLLOUT * 1e3:.3f} ms per env step), {tr.carry.agent.step} "
+        f"updates ({learned} of {iters * ROBUST_ROLLOUT} steps learn) in {train_s:.4f} s = "
+        f"{tr.carry.agent.step / train_s:.1f} updates/s; K1 launches {launches} == {iters} x "
+        f"{ROBUST_ROLLOUT} + {launches - iters * ROBUST_ROLLOUT} eval steps")
+    for name in ("train_iteration", "evaluate", "checkpoint"):
+        if name in timing:
+            log(f"[11b] trainer stage {name}: {timing[name]['total_sec']:.4f} s in all, "
+                f"{timing[name]['count']}x, mean {timing[name]['mean_sec']:.4f} s")
+    log("[11b] final eval rounds (nominal, robust, stage; "
+        f"{cfg.training.eval_episodes} episodes each): "
+        + ", ".join(f"{sec:.4f} s ({ran} steps before the early exit, K1 launches {k})"
+                    for k, ran, sec in evals)
+        + "; " + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items())
+                           if k.endswith(("success_rate", "reward_mean"))))
+    log(f"[11b] seen in training: {none} of {feas_counts['draws']} feasible-only reset draws "
+        f"fell back to the nominal plant ({none / feas_counts['draws']:.2%}); mixture gate "
+        f"{'on' if rnd.dr_mixture_enabled else 'off at this stage (dr_prob 1)'}; {dropped} of "
+        f"{rows} replay transitions hold a dropped reading ({dropped / rows:.2%}); device memory "
+        f"peak {torch.cuda.max_memory_allocated() / 1e6:.1f} MB (replay "
+        f"{sum(t.numel() * t.element_size() for t in data.values()) / 1e6:.1f} MB)")
+
+    # ---- 11c. resume from the final checkpoint: the carry (prev_imu
+    # included) and both generators bit for bit
+    phase("[11c]")
+    final = scratch / "robust" / "checkpoints"
+    resumed = Trainer(cfg, output_dir=scratch / "robust_resumed", resume=final, device=dev)
+    saved = {"carry": tr.carry, "generator": tr.generator}
+    diffs = diff_states(saved, {"carry": resumed.carry, "generator": resumed.generator})
+    assert not diffs, diffs[:10]
+    assert resumed.carry.env_states.prev_imu is not None and resumed.env_steps == tr.env_steps
+    log(f"[11c] resume from {final.name}/{tr.env_steps}: carry (prev_imu included) and both "
+        f"generators equal the saved ones bit for bit ({len(flat_state(saved))} leaves): ok")
+    resumed.logger.close()
+    del resumed
+
+    # ---- the options' own cost on the env step: the base box with every
+    # option on against the same env with them off, in turns
+    phase("[11b] options on/off")
+    on = build_env_params(cfg)
+    off = options_off(on)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    actions = torch.rand((n, 2), generator=gen, device=dev) * 2.0 - 1.0
+    start = {name: rocket_env.reset(p, n, device=dev, generator=gen)[0]
+             for name, p in (("on", on), ("off", off))}
+    env = {"on": on, "off": off}
+
+    def window(name):
+        states = start[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OPTION_STEPS):
+            states, _, _ = rocket_env.batched_step_autoreset(states, actions, env[name],
+                                                             generator=gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OPTION_STEPS * 1e3
+
+    def one_step(name):
+        return lambda: rocket_env.batched_step_autoreset(start[name], actions, env[name],
+                                                         generator=gen)
+
+    window("on"), window("off")   # warm-up
+    host_ms = in_turns({"on": "on", "off": "off"}, window)
+    dev_ms = in_turns({"on": "on", "off": "off"},
+                      lambda name: device_ms(one_step(name), reps=10, inner=3))
+    ops = {}
+    for name in ("on", "off"):
+        # device activity only: a host trace of these windows costs seconds to
+        # process and is not read
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window(name)
+            prof_ms = (time.perf_counter() - t0) / OPTION_STEPS * 1e3
+        ops[name] = device_breakdown(prof, OPTION_STEPS, prof_ms, "[11b]",
+                                     f"profiled env step, options {name}, {n} envs", top=0)
+        del prof
+    gc.collect()
+    log(f"[11b] env step at {n} envs, options on vs off, in turns (on off off on): host "
+        f"{host_ms['on'][0]:.4f}, {host_ms['on'][1]:.4f} vs {host_ms['off'][0]:.4f}, "
+        f"{host_ms['off'][1]:.4f} ms per step; device {dev_ms['on'][0]:.5f}, "
+        f"{dev_ms['on'][1]:.5f} vs {dev_ms['off'][0]:.5f}, {dev_ms['off'][1]:.5f} ms per step; "
+        f"device operations per step {ops['on']['ops']:.1f} vs {ops['off']['ops']:.1f}")
+
+    # ---- 4 learning steps under the profiler
+    phase("[11b] profile")
+    prof_it = loop.make_train_iteration(
+        tr.sac_cfg, dataclasses.replace(tr.loop_cfg, rollout_steps=ROBUST_PROFILE_STEPS))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.carry, _ = prof_it(tr.carry, tr.env_params)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / ROBUST_PROFILE_STEPS * 1e3
+    device_breakdown(prof, ROBUST_PROFILE_STEPS, step_ms, "[11b]",
+                     f"profiled train iteration, {n} envs x {ROBUST_PROFILE_STEPS} steps, "
+                     f"{per} updates per step", top=8)
+    del prof, tr
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
@@ -842,6 +1167,7 @@ def main() -> int:
         yaml_status = f"not importable ({exc})"
     log(f"[1] PyYAML: {yaml_status}")
 
+    phase("[2]")
     # ---- 2. build K1 from the checkout's sources
     t0 = time.perf_counter()
     lib, build_log = k1.build()
@@ -849,6 +1175,7 @@ def main() -> int:
     for line in build_log.strip().splitlines():
         log(f"[2] nvcc: {line.strip()}")
 
+    phase("[3]")
     # ---- 3. K1 against its plain version on the card
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = RocketParams()
@@ -910,6 +1237,7 @@ def main() -> int:
         f"max |d reward| {float((a.reward.cpu() - b.reward).abs().max()):.3e}, "
         f"terminated/truncated equal, {n_done} episode ends: ok")
 
+    phase("[4]")
     # ---- 4. env path: batched_step_autoreset, N envs, random actions
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     states, obs = rocket_env.reset(env_params, N_ENVS, device=dev, generator=gen)
@@ -939,6 +1267,7 @@ def main() -> int:
         f"{env_rate:.1f} env steps/s ({env_s / env_steps * 1e3:.3f} ms per step); "
         f"K1 launches {env_launches} == steps taken")
 
+    phase("[5]")
     # ---- 5. the slice's main path: collect with the 256x256 actor + safety
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     actor = sac.make_actor(n_obs, 2, sac.SACConfig(HIDDEN), device=dev, seed=SEED)
@@ -979,6 +1308,7 @@ def main() -> int:
     del prof
     gc.collect()
 
+    phase("[6]")
     # ---- 6. K1 at N envs beside its launch floor (an empty kernel on its
     # grid), its memory floor (its I/O with no arithmetic), its wrench part
     # (substeps = 0), the host's cost of a call, its plain version and its
@@ -1054,6 +1384,7 @@ def main() -> int:
         log(f"[6] K1 n={n} {what}: max |K1 - plain| = {errs[-1]:.3e} "
             f"(atol {tol['atol']}, rtol {tol['rtol']}) ok")
 
+    phase("[7]")
     # ---- 7. the learner on the card (K1) against the port on the CPU (plain
     # version): the same initial state and draws, 16 steps, updates from step 4
     short_sac = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * small,
@@ -1117,6 +1448,7 @@ def main() -> int:
         f"vs {float(bm['critic_loss']):.6g}: ok")
     del learned, a, b, am, bm, iter_draws
 
+    phase("[8]")
     # ---- 8. the main path: the fused train iteration at the default
     # configuration, K1 for the physics, learning on from the first step
     train_sac = sac.SACConfig(**DEFAULT_SAC)
@@ -1221,6 +1553,7 @@ def main() -> int:
         f"({train_sac.batch_size}): device {replay_ms:.4f} ms, host {replay_host_ms:.4f} ms "
         f"per call")
 
+    phase("[9a]")
     # ---- 9a. evaluation on the card (K1) against the CPU (plain version):
     # the same seeded actor, reset draws and IMU noise, the default training
     # env (curriculum stage 0, DR + sensor noise); then K1 below one block
@@ -1312,21 +1645,35 @@ def main() -> int:
             f"{tol['rtol']}) ok; {small_n[n][0]:.5f} ms, launch floor {small_n[n][1]:.5f} ms")
     del eval_agents, short_eval, full_eval
 
+    phase("[9]")
     # ---- 9. the trainer at the default configuration, 2 iterations with an
     # eval round after each, then resumed from its final checkpoint into a
     # 3rd, and once from a best step directory
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
     try:
         trainer_launches = run_trainer(scratch, dev)
+        phase("[9b]")
         eval_launches = run_suites(scratch, dev, n_obs)
 
         # ---- 10. the ensemble: card vs CPU per acting member, the trainer
         # at the default config, the flagship configuration
+        phase("[10]")
         errs.append(ensemble_card_vs_cpu(short))
+        phase("[10b]")
         ensemble_launches = run_ensemble_trainer(scratch, dev)
+        phase("[10c]")
         ensemble_launches["flagship"] = run_flagship(scratch, dev)
+
+        # ---- 11. the robust-training env options: card vs CPU with every
+        # option on, robust_full_r4d.yaml at its widths, its resume
+        phase("[11a]")
+        robust_card_vs_cpu(dev)
+        ensemble_launches["robust_card_vs_cpu"] = ROBUST_STEPS
+        phase("[11b]")
+        ensemble_launches["robust_r4d"] = run_robust_trainer(scratch, dev)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    log(f"[t] seconds by phase: {phase_seconds()}")
 
     log(smi)
     log(json.dumps({"kernels": [{

@@ -174,12 +174,6 @@ def test_sac_and_loop_configs_as_in_jax(overrides):
 
 
 UNPORTED = {
-    "dr_mixture": ["env.domain_randomization.dr_prob=0.5"],
-    "feasible_only": ["env.domain_randomization.feasible_only=true"],
-    "sensor_dropout": ["env.domain_randomization.sensor_dropout_prob=0.1"],
-    "actuator_delay": ["env.domain_randomization.actuator_delay=true"],
-    "survival_normalized": ["reward_function.survival_normalized_success=true"],
-    "equilibrium_shaping": ["reward_function.equilibrium_relative_shaping=true"],
     "bfloat16": ["algorithms.sac.compute_dtype=bfloat16"],
     "transformer": ["network.architecture_type=transformer"],
     "curiosity": ["exploration.curiosity.enabled=true"],
@@ -231,3 +225,48 @@ def test_build_ensemble_config_as_in_jax(name):
     if name == "ensemble_r4.yaml":
         assert (port.selection_epsilon, port.sac.batch_size, port.sac.alpha) == (0.2, 1024, 0.05)
         assert not port.sac.automatic_entropy_tuning
+
+
+# the YAMLs of the robust-training runs the port runs (the other two robust
+# runs also need training.demo_seeding or training.warm_start_actor)
+ROBUST_YAMLS = ["curriculum_showcase.yaml", "probe_cg.yaml", "robust_full_r4d.yaml",
+                "robust_noncg_r4.yaml", "robust_noncg_r4b.yaml", "robust_noncg_r4c.yaml",
+                "robust_r3.yaml", "robust_r3b.yaml", "robust_r3c.yaml", "robust_r3d.yaml",
+                "robust_r3e.yaml"]
+
+
+@pytest.mark.parametrize("name", ROBUST_YAMLS)
+def test_robust_yaml_copy_builds_as_in_jax(name):
+    """The port's copy is the JAX package's file under one header line; it
+    loads to the same tree, and ``build_env_params`` (the base env and every
+    curriculum stage, each stage's ``dr_prob`` setting the mixture gate),
+    ``build_sac_config`` and ``build_loop_config`` build it as JAX does,
+    field by field."""
+    port_path = ROOT / "tvc_ai_torch" / "config" / name
+    ref_path = ROOT / "tvc_ai_tpu" / "config" / name
+    header, body = port_path.read_text().split("\n", 1)
+    assert header == f"# The port's copy of tvc_ai_tpu/config/{name}, unchanged below this line."
+    assert body == ref_path.read_text()
+    port, ref = t_loader.load_config(port_path), j_loader.load_config(ref_path)
+    assert port.to_dict() == ref.to_dict()
+    built = [t_build.build_env_params(port)]
+    assert_params_equal(built[0], _jax_params(ref))
+    for t_stage, j_stage in zip(port.curriculum.stages, ref.curriculum.stages):
+        built.append(t_build.build_env_params(port, t_stage))
+        assert_params_equal(built[-1], _jax_params(ref, j_stage))
+        dr_prob = port.env.domain_randomization.dr_prob if t_stage.dr_prob is None else t_stage.dr_prob
+        assert built[-1].randomization.dr_mixture_enabled == (dr_prob < 1.0)
+    rnd = built[0].randomization
+    # every file turns on an option this slice ports
+    assert (rnd.feasible_only or rnd.dr_mixture_enabled or rnd.sensor_dropout_enabled
+            or rnd.actuator_delay or built[0].reward.survival_normalized_success
+            or built[0].reward.equilibrium_relative_shaping)
+    t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
+    for f in dataclasses.fields(SACConfig):
+        assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
+    t_loop, j_loop = t_build.build_loop_config(port), j_build.build_loop_config(ref)
+    for f in dataclasses.fields(t_loop):
+        if f.name == "safety":
+            assert dataclasses.asdict(t_loop.safety) == dataclasses.asdict(j_loop.safety)
+        else:
+            assert getattr(t_loop, f.name) == getattr(j_loop, f.name), f.name

@@ -18,6 +18,7 @@ checkpoint. The PPO and blended actors' iterations are in
 
 from __future__ import annotations
 
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -87,7 +88,6 @@ def ensemble_draws(chain: KeyChain, key, env_keys, sizes, actor: str, cfg) -> tu
                                  for k in jax.random.split(k_act, 3)])
         else:
             n_act = to_torch(jax.random.normal(k_act, (N, ACT)))
-        n_imu, reset = chain.step(env_keys[t])
         sac_draws, td3_draws = [], []
         if sizes[t] >= gate:
             k = k_u1
@@ -101,29 +101,30 @@ def ensemble_draws(chain: KeyChain, key, env_keys, sizes, actor: str, cfg) -> tu
                 td3_draws.append(t_ens.TD3Draws(
                     idx=sample_idx(k_s, b_td3, sizes[t]),
                     noise=to_torch(jax.random.normal(k_u, (b_td3, ACT)))))
-        out.append(t_ens.EnsembleStepDraws(step=StepDraws(n_act=n_act, n_imu=n_imu, reset=reset),
+        out.append(t_ens.EnsembleStepDraws(step=dataclasses.replace(chain.step(env_keys[t]),
+                                                                    n_act=n_act),
                                            sac=sac_draws, td3=td3_draws))
     return out, key
 
 
-def make_run(actor: str) -> dict:
+def make_run(actor: str, params: EnvParams = JAX_PARAMS) -> dict:
     """One iteration of ``actor`` on both sides from the same carry and draws."""
     j_cfg, t_cfg = configs()
-    carry0 = jax.jit(lambda k: j_ens.init_carry(k, JAX_PARAMS, j_cfg, N))(jax.random.PRNGKey(7))
+    carry0 = jax.jit(lambda k: j_ens.init_carry(k, params, j_cfg, N))(jax.random.PRNGKey(7))
     t_carry0 = ensemble_carry_from_numpy(np_tree(carry0), t_cfg, device="cpu")
 
     def run_jax():
         it = jax.jit(j_ens.make_ensemble_iteration(actor, j_cfg, N, STEPS, UPDATES))
-        return it(carry0, jnp.asarray(WEIGHTS), JAX_PARAMS)
+        return it(carry0, jnp.asarray(WEIGHTS), params)
 
     (j_carry, j_metrics), env_keys = record_env_keys(run_jax, N)
     assert env_keys.shape[0] == STEPS
     cap = int(carry0.buffer.capacity)
     sizes = [min((t + 1) * N, cap) for t in range(STEPS)]
-    draws, key = ensemble_draws(KeyChain(JAX_PARAMS), carry0.key, env_keys, sizes, actor, t_cfg)
+    draws, key = ensemble_draws(KeyChain(params), carry0.key, env_keys, sizes, actor, t_cfg)
     perms = (permutations(key, STEPS * N, t_cfg.ppo.n_epochs) if actor == "ppo" else None)
     t_it = t_ens.make_ensemble_iteration(actor, t_cfg, N, STEPS, UPDATES)
-    t_carry, t_metrics = t_it(t_carry0, WEIGHTS, env_params_from_numpy(JAX_PARAMS), draws, perms)
+    t_carry, t_metrics = t_it(t_carry0, WEIGHTS, env_params_from_numpy(params), draws, perms)
     return dict(actor=actor, j=j_carry, jm=j_metrics, t=t_carry, tm=t_metrics, cfg=t_cfg,
                 sizes=sizes)
 

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity_utils import KeyChain, assert_state_close, np_tree
+from test_torch_parity_utils import KeyChain, assert_state_close, np_tree, run_env_parity
 from tvc_ai_torch.convert import env_params_from_numpy, env_state_from_numpy
 from tvc_ai_torch.env import mission as t_mission
 from tvc_ai_torch.env import reward as t_reward
@@ -48,42 +48,9 @@ CASES = {
 
 
 def run_parity(case: str, batched: bool, seed: int) -> None:
-    jp = EnvParams(max_episode_steps=8, **CASES[case])
-    tp = env_params_from_numpy(jp)
-    chain = KeyChain(jp)
-    keys = jax.random.split(jax.random.PRNGKey(seed), N)
-    j_state, j_obs = jax.vmap(j_env.reset, in_axes=(0, None))(keys, jp)
-    t_state, t_obs = t_env.reset(tp, N, device="cpu", draws=chain.reset(keys))
-    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), **OBS)
-
-    if batched:
-        j_fn = jax.jit(lambda s, a: j_env.batched_step_autoreset(
-            s, a, jp, use_pallas=True, block_envs=N, interpret=True))
-    else:
-        j_fn = jax.jit(jax.vmap(lambda s, a: j_env.step_autoreset(s, a, jp)))
-    t_fn = t_env.batched_step_autoreset if batched else t_env.step_autoreset
-
-    rng = np.random.default_rng(seed)
-    dones = 0
-    for t in range(STEPS):
-        actions = rng.uniform(-1.0, 1.0, size=(N, 2)).astype(np.float32)
-        n_imu, reset_draws = chain.step(j_state.key)
-        j_state, j_out, j_next = j_fn(j_state, jnp.asarray(actions))
-        t_state, t_out, t_next = t_fn(
-            t_state, torch.from_numpy(actions), tp, n_imu=n_imu, reset_draws=reset_draws
-        )
-        what = f"{case} step {t}"
-        np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_out.obs), err_msg=what, **OBS)
-        np.testing.assert_allclose(t_out.reward.numpy(), np.asarray(j_out.reward),
-                                   err_msg=what, **REWARD)
-        np.testing.assert_array_equal(t_out.terminated.numpy(), np.asarray(j_out.terminated),
-                                      err_msg=what)
-        np.testing.assert_array_equal(t_out.truncated.numpy(), np.asarray(j_out.truncated),
-                                      err_msg=what)
-        np.testing.assert_allclose(t_next.numpy(), np.asarray(j_next), err_msg=what, **OBS)
-        assert_state_close(t_state, j_state, what=what)
-        dones += int((t_out.terminated | t_out.truncated).sum())
-    assert dones >= N  # autoresets fired (truncation at step 8 at the latest)
+    counts = run_env_parity(EnvParams(max_episode_steps=8, **CASES[case]), batched, seed,
+                            n=N, steps=STEPS, what=case)
+    assert counts["dones"] >= N  # autoresets fired (truncation at step 8 at the latest)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -108,10 +75,10 @@ def test_env_state_from_numpy_resumes_jax_state():
     j_state, _, _ = j_step(j_state, actions)
     t_state = env_state_from_numpy(np_tree(j_state), device="cpu")
     assert_state_close(t_state, j_state, atol=0.0, rtol=0.0)
-    n_imu, reset_draws = KeyChain(jp).step(j_state.key)
+    d = KeyChain(jp).step(j_state.key)
     j_state, j_out, _ = j_step(j_state, actions)
     t_state, t_out, _ = t_env.step_autoreset(
-        t_state, torch.full((16, 2), 0.3), tp, n_imu=n_imu, reset_draws=reset_draws
+        t_state, torch.full((16, 2), 0.3), tp, n_imu=d.n_imu, reset_draws=d.reset
     )
     np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_out.obs), **OBS)
 
@@ -129,25 +96,6 @@ def test_batched_step_autoreset_rejects_extra_physics():
         step_kernel(states.body, ctrl, tp.rocket, dr.mass, dr.thrust_scale, dr.cg_offset, dr.wind)
     _, out, _ = t_env.batched_step_autoreset(states, torch.zeros(4, 2), tp, generator=g)
     assert out.obs.shape == (4, 10)
-
-
-UNPORTED = {
-    "feasible_only": dict(randomization=t_types.RandomizationConfig(feasible_only=True)),
-    "dr_mixture_enabled": dict(randomization=t_types.RandomizationConfig(dr_mixture_enabled=True)),
-    "sensor_dropout_enabled": dict(
-        randomization=t_types.RandomizationConfig(sensor_dropout_enabled=True)),
-    "actuator_delay": dict(randomization=t_types.RandomizationConfig(actuator_delay=True)),
-    "survival_normalized_success": dict(
-        reward=t_types.RewardConfig(survival_normalized_success=True)),
-    "equilibrium_relative_shaping": dict(
-        reward=t_types.RewardConfig(equilibrium_relative_shaping=True)),
-}
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED))
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match=option):
-        t_env.reset(t_types.EnvParams(**UNPORTED[option]), 2, device="cpu")
 
 
 # ------------------------------------------------------------- env parts

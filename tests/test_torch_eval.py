@@ -22,7 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity_utils import KeyChain, np_tree
+from test_torch_parity_utils import (
+    EVERY_OPTION,
+    KeyChain,
+    np_tree,
+    option_params,
+    reset_key_left,
+    step_obs_draws,
+)
 from tvc_ai_torch.agents import sac as t_sac
 from tvc_ai_torch.convert import env_params_from_numpy, sac_state_from_numpy
 from tvc_ai_torch.env import rocket_env as t_env
@@ -62,25 +69,22 @@ def jax_params(randomized: bool, horizon: int = HORIZON) -> EnvParams:
 
 
 def replay_draws(key, params: EnvParams, episodes: int) -> EvalDraws:
-    """The draws JAX's ``eval_fn(agent, key, params)`` consumes."""
+    """The draws JAX's ``eval_fn(agent, key, params)`` consumes: each
+    step's IMU noise and dropout draw from the key each env carries."""
     k_reset, _ = jax.random.split(key)
     keys = jax.random.split(k_reset, episodes)
     reset = KeyChain(params).reset(keys)
-    if not params.randomization.sensor_noise_enabled:
+    rnd = params.randomization
+    if not (rnd.sensor_noise_enabled or rnd.sensor_dropout_enabled):
         return EvalDraws(reset=reset)
 
-    def env_key(k):  # the key reset leaves in the state (sensor noise on)
-        return jax.random.split(k, 4)[3]
+    def per_env(k):
+        return jax.lax.scan(lambda c, _: step_obs_draws(c, params), reset_key_left(k, params),
+                            None, length=params.max_episode_steps)[1]
 
-    def step(k, _):
-        k, k_noise = jax.random.split(k)
-        return k, jax.random.normal(k_noise, (7,))
-
-    def noise(k):
-        return jax.lax.scan(step, env_key(k), None, length=params.max_episode_steps)[1]
-
-    n_imu = jax.jit(jax.vmap(noise))(keys)                     # (E, T, 7)
-    return EvalDraws(reset=reset, n_imu=torch.from_numpy(np.array(n_imu)).transpose(0, 1))
+    d = jax.jit(jax.vmap(per_env))(keys)                       # (E, T, ...)
+    steps = {k: torch.from_numpy(np.array(v)).transpose(0, 1) for k, v in d.items()}
+    return EvalDraws(reset=reset, **steps)
 
 
 def agents(policy_obs: int, seed: int = 0):
@@ -116,6 +120,24 @@ def test_eval_matches_jax(case):
     assert_stats_close(port, ref)
     assert int(port.lengths.min()) < HORIZON  # some episode ended inside the horizon
     assert t_rollout.summarize_stats(port).keys() == j_rollout.summarize_stats(ref).keys()
+
+
+def test_eval_matches_jax_with_robust_options():
+    """Every robust-training env option on (the eval rollout steps without
+    autoreset, so the reset's feasible and mixture draws and every step's
+    noise and dropout draw come from the replayed chain); the survival
+    payout and the loose success window make successes count."""
+    jp = option_params({k: v for k, v in EVERY_OPTION.items() if k != "drift_obs_enabled"},
+                       max_episode_steps=HORIZON)
+    j_agent, t_agent = agents(10)
+    key = jax.random.PRNGKey(EVAL_KEY)
+    ref = jax.jit(j_rollout.make_eval_fn(j_sac.SACConfig(**SAC), E))(j_agent, key, jp)
+    draws = replay_draws(key, jp, E)
+    assert draws.u_drop.shape == (HORIZON, E) and draws.reset.u_feas.shape == (E, 8, 4)
+    port = t_rollout.make_eval_fn(t_sac.SACConfig(**SAC), E)(
+        t_agent, None, env_params_from_numpy(jp), draws)
+    assert_stats_close(port, ref)
+    assert bool(port.success.any())
 
 
 def test_trajectory_matches_jax():

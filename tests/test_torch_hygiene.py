@@ -3,6 +3,8 @@ and the card's eval path integrates only through K1."""
 
 from __future__ import annotations
 
+import ast
+import importlib.util
 import pkgutil
 import subprocess
 import sys
@@ -236,6 +238,85 @@ def test_ensemble_path_reaches_physics_only_through_k1(monkeypatch):
     ppo.make_train_iteration(cfg.ppo, 4, 3, 10, 2)(
         ppo.init(10, 2, cfg.ppo, device="cpu"), states, obs, gen, params)
     assert calls == ["cpu"] * (3 * len(ensemble.ACTORS) + 3)
+
+
+def test_port_reads_no_yaml_of_the_jax_package():
+    """Every config file the port opens, while it loads each of its YAMLs
+    and builds their env, SAC and loop configs, lies in its own
+    ``config/`` directory (an audit hook records every ``open``); and no
+    string in its code other than a docstring names a path under
+    ``tvc_ai_tpu``."""
+    code = (
+        "import sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda ev, args: opened.append(str(args[0])) "
+        "if ev == 'open' and str(args[0]).endswith(('.yaml', '.yml')) else None)\n"
+        "from tvc_ai_torch.config import build, loader\n"
+        "root = loader.default_config_path().parent\n"
+        "names = sorted(p.name for p in root.glob('*.yaml'))\n"
+        "for name in names:\n"
+        "    cfg = loader.load_config(root / name)\n"
+        "    build.build_env_params(cfg)\n"
+        "    build.build_sac_config(cfg)\n"
+        "    build.build_loop_config(cfg)\n"
+        "loader.load_config(None)\n"
+        "assert opened and all(p.startswith(str(root)) for p in opened), opened\n"
+        "assert len(names) == 14, names\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for name in MODULES + ["tvc_ai_torch"]:
+        tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
+        docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                      if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                      and node.body and isinstance(node.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings):
+                assert "tvc_ai_tpu" not in node.value, (name, node.value)
+
+
+def test_robust_option_paths_reach_physics_only_through_k1(monkeypatch):
+    """With every robust-training env option on, the SAC iteration, the
+    evaluation rollout, the ensemble iteration and the stand-alone PPO
+    iteration integrate through K1's wrapper, never the plain integrator."""
+    from tvc_ai_torch.env.types import RandomizationConfig, RewardConfig
+    from tvc_ai_torch.eval.rollout import make_eval_fn
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a robust-option path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    params = EnvParams(
+        randomization=RandomizationConfig(
+            enabled=True, sensor_noise_enabled=True, feasible_only=True, dr_mixture_enabled=True,
+            dr_prob=0.5, sensor_dropout_enabled=True, sensor_dropout_prob=0.2,
+            actuator_delay=True),
+        reward=RewardConfig(survival_normalized_success=True, equilibrium_relative_shaping=True),
+        max_episode_steps=3)
+    small = sac.SACConfig((8, 8), batch_size=8, buffer_size=64, learning_starts=8)
+    loop_cfg = loop.TrainLoopConfig(num_envs=4, rollout_steps=3)
+    carry = loop.init_carry(params, small, loop_cfg, device="cpu", seed=1)
+    loop.make_train_iteration(small, loop_cfg)(carry, params)
+    gen = torch.Generator().manual_seed(0)
+    make_eval_fn(small, 3, check_every=10**9)(sac.init(10, 2, small, device="cpu"), gen, params)
+    cfg = ensemble.EnsembleConfig(sac=small, td3=td3.TD3Config((8, 8), batch_size=8),
+                                  ppo=ppo.PPOConfig((8, 8), n_epochs=1))
+    carry = ensemble.init_carry(params, cfg, 4, device="cpu", seed=1)
+    ensemble.make_ensemble_iteration("ensemble", cfg, 4, 3)(carry, [1, 1, 1], params)
+    states, obs = rocket_env.reset(params, 4, "cpu", generator=gen)
+    ppo.make_train_iteration(cfg.ppo, 4, 3, 10, 2)(
+        ppo.init(10, 2, cfg.ppo, device="cpu"), states, obs, gen, params)
+    assert calls == ["cpu"] * (3 + 3 + 3 + 3)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -6,11 +6,17 @@ consumes, so both packages can be fed the same numbers:
 
 - reset: ``rocket_env.py`` splits the key into (k_dr, k_init, k_noise,
   k_next) with sensor noise on (three keys without); the domain draw splits
-  k_dr into (ku, kn) for uniform(7) and normal(3); k_init gives the
-  uniform(7) initial-state draw; k_noise the normal(7) IMU noise;
+  k_dr into (ku, kn) for uniform(7) and normal(3), or, with
+  ``feasible_only``, splits kn again into (ku2, kn2) for the candidates'
+  uniform(K, 4) and normal(K, 3) (normal(kn, 3) is then not drawn); k_init
+  gives the uniform(7) initial-state draw; k_noise the normal(7) IMU noise
+  (no dropout draw at reset);
 - step: ``_pre_physics`` splits the carried key into (key, k_noise) when
-  sensor noise is on; ``_finish_autoreset`` splits ``key`` into
-  (k_reset, k_carry) and resets from k_reset;
+  sensor noise or sensor dropout is on; with both on ``_observe`` splits
+  k_noise into (kn, kd), the IMU noise is normal(kn, 7) and the dropout
+  draw is ``bernoulli(kd, p)``, i.e. uniform(kd, ()) < p; with one of them
+  on, that one draws from k_noise itself; ``_finish_autoreset`` splits
+  ``key`` into (k_reset, k_carry) and resets from k_reset;
 - train iteration (``training/loop.py``): each step splits the carry's key
   into (k_act, k_sample, k_update, k_next); the action noise is
   normal(k_act, (N, A)); each update splits its key, starting from
@@ -26,6 +32,8 @@ consumes, so both packages can be fed the same numbers:
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,9 +47,25 @@ from tvc_ai_torch.env.rocket_env import ResetDraws
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws
 from tvc_ai_tpu.agents import replay as j_replay
 from tvc_ai_tpu.env import rocket_env as j_env
-from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig
+from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig, RewardConfig, SuccessConfig
 
 torch.set_num_threads(1)
+
+
+def _domain_draws_one(k_dr, rnd) -> dict:
+    """The draws ``sample_domain_params(k_dr, ..)`` consumes."""
+    out = {}
+    if rnd.enabled or rnd.sensor_noise_uniform or rnd.progress_rate_randomized:
+        ku, kn = jax.random.split(k_dr)
+        out["u_dr"] = jax.random.uniform(ku, (7,), minval=-1.0, maxval=1.0)
+        if rnd.enabled and rnd.feasible_only:
+            ku2, kn2 = jax.random.split(kn)
+            out["u_feas"] = jax.random.uniform(ku2, (rnd.feasible_tries, 4), minval=-1.0,
+                                               maxval=1.0)
+            out["n_feas"] = jax.random.normal(kn2, (rnd.feasible_tries, 3))
+        elif rnd.enabled:
+            out["n_dr"] = jax.random.normal(kn, (3,))
+    return out
 
 
 def _reset_draws_one(key, params):
@@ -50,22 +74,39 @@ def _reset_draws_one(key, params):
         k_dr, k_init, k_noise, _ = jax.random.split(key, 4)
     else:
         k_dr, k_init, _ = jax.random.split(key, 3)
-    out = {"u_init": jax.random.uniform(k_init, (7,), minval=-1.0, maxval=1.0)}
-    if rnd.enabled or rnd.sensor_noise_uniform or rnd.progress_rate_randomized:
-        ku, kn = jax.random.split(k_dr)
-        out["u_dr"] = jax.random.uniform(ku, (7,), minval=-1.0, maxval=1.0)
-        if rnd.enabled:
-            out["n_dr"] = jax.random.normal(kn, (3,))
+    out = {"u_init": jax.random.uniform(k_init, (7,), minval=-1.0, maxval=1.0),
+           **_domain_draws_one(k_dr, rnd)}
     if rnd.sensor_noise_enabled:
         out["n_imu"] = jax.random.normal(k_noise, (7,))
     return out
 
 
-def _step_draws_one(key, params):
+def reset_key_left(key, params):
+    """The key ``reset(key, params)`` leaves in the state."""
+    return jax.random.split(key, 4 if params.randomization.sensor_noise_enabled else 3)[-1]
+
+
+def step_obs_draws(key, params) -> tuple:
+    """(the key left, {n_imu, u_drop}) of one ``step`` of a state carrying
+    ``key``: the IMU noise and the dropout draw of the new observation."""
+    rnd = params.randomization
     out = {}
-    if params.randomization.sensor_noise_enabled:
-        key, k_noise = jax.random.split(key)
-        out["n_imu"] = jax.random.normal(k_noise, (7,))
+    if not (rnd.sensor_noise_enabled or rnd.sensor_dropout_enabled):
+        return key, out
+    key, k_noise = jax.random.split(key)
+    if rnd.sensor_noise_enabled and rnd.sensor_dropout_enabled:
+        kn, kd = jax.random.split(k_noise)
+    else:
+        kn = kd = k_noise
+    if rnd.sensor_noise_enabled:
+        out["n_imu"] = jax.random.normal(kn, (7,))
+    if rnd.sensor_dropout_enabled:
+        out["u_drop"] = jax.random.uniform(kd, ())
+    return key, out
+
+
+def _step_draws_one(key, params):
+    key, out = step_obs_draws(key, params)
     k_reset, _ = jax.random.split(key)
     out["reset"] = _reset_draws_one(k_reset, params)
     return out
@@ -86,12 +127,14 @@ class KeyChain:
         """Draws of ``vmap(reset)(keys, params)``."""
         return to_reset_draws(self._reset(keys))
 
-    def step(self, state_keys) -> tuple[torch.Tensor | None, ResetDraws]:
-        """(n_imu, autoreset draws) that the next ``step_autoreset`` of states
-        carrying ``state_keys`` consumes."""
+    def step(self, state_keys) -> StepDraws:
+        """The draws (IMU noise, dropout draw, autoreset draws; no action
+        noise) that the next ``step_autoreset`` of states carrying
+        ``state_keys`` consumes."""
         d = self._step(state_keys)
-        n_imu = torch.from_numpy(np.array(d["n_imu"])) if "n_imu" in d else None
-        return n_imu, to_reset_draws(d["reset"])
+        return StepDraws(n_imu=to_torch(d["n_imu"]) if "n_imu" in d else None,
+                         u_drop=to_torch(d["u_drop"]) if "u_drop" in d else None,
+                         reset=to_reset_draws(d["reset"]))
 
 
 def np_tree(x):
@@ -126,9 +169,8 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
     out = []
     for t in range(loop_cfg.rollout_steps):
         k_act, _, k_update, key = jax.random.split(key, 4)
-        n_imu, reset = chain.step(env_keys[t])
-        step = StepDraws(n_act=to_torch(jax.random.normal(k_act, (n, a))), n_imu=n_imu,
-                         reset=reset)
+        step = dataclasses.replace(chain.step(env_keys[t]),
+                                   n_act=to_torch(jax.random.normal(k_act, (n, a))))
         samples = []
         if t % every == every - 1 and sizes[t] >= sac_cfg.learning_starts:
             k = k_update
@@ -198,10 +240,122 @@ def assert_state_close(t_state, j_state, atol=5e-5, rtol=5e-4, what=""):
         np.testing.assert_array_equal(
             getattr(t_state, name).numpy(), getattr(j, name), err_msg=f"{what} {name}"
         )
+    if j.prev_imu is None:
+        assert t_state.prev_imu is None, f"{what} prev_imu"
+    else:
+        np.testing.assert_allclose(t_state.prev_imu.numpy(), j.prev_imu, atol=atol, rtol=rtol,
+                                   err_msg=f"{what} prev_imu")
+
+
+OBS = dict(atol=5e-5, rtol=5e-4)
+REWARD = dict(atol=1e-3, rtol=1e-3)
+
+
+def run_env_parity(jp: EnvParams, batched: bool, seed: int, n: int = 64, steps: int = 16,
+                   what: str = "") -> dict:
+    """Both packages from the same reset, then ``steps`` free-running steps
+    of seeded random actions on the replayed draws: the production route
+    (K1's wrapper against JAX's Pallas kernel in interpret mode) or the plain
+    one (``step_autoreset`` against ``vmap(step_autoreset)``). Every step's
+    obs, reward, flags, next policy obs and state are held at the env bars
+    (obs 5e-5 / 5e-4, reward 1e-3, flags exact, ``dr`` 1e-6). With sensor
+    dropout on, both sides must hold the previous reading exactly where the
+    draw says drop. Returns the counts of episode ends, dropped readings and
+    first-success steps."""
+    tp = env_params_from_numpy(jp)
+    chain = KeyChain(jp)
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    j_state, j_obs = jax.vmap(j_env.reset, in_axes=(0, None))(keys, jp)
+    t_state, t_obs = t_env.reset(tp, n, device="cpu", draws=chain.reset(keys))
+    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), err_msg=what, **OBS)
+
+    if batched:
+        j_fn = jax.jit(lambda s, a: j_env.batched_step_autoreset(
+            s, a, jp, use_pallas=True, block_envs=n, interpret=True))
+    else:
+        j_fn = jax.jit(jax.vmap(lambda s, a: j_env.step_autoreset(s, a, jp)))
+    t_fn = t_env.batched_step_autoreset if batched else t_env.step_autoreset
+
+    rng = np.random.default_rng(seed)
+    counts = dict(dones=0, drops=0, first_successes=0)
+    for t in range(steps):
+        actions = rng.uniform(-1.0, 1.0, size=(n, 2)).astype(np.float32)
+        d = chain.step(j_state.key)
+        j_prev, t_prev = j_state, t_state
+        j_state, j_out, j_next = j_fn(j_state, jnp.asarray(actions))
+        t_state, t_out, t_next = t_fn(t_state, torch.from_numpy(actions), tp, n_imu=d.n_imu,
+                                      reset_draws=d.reset, u_drop=d.u_drop)
+        at = f"{what} step {t}"
+        np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_out.obs), err_msg=at, **OBS)
+        np.testing.assert_allclose(t_out.reward.numpy(), np.asarray(j_out.reward), err_msg=at,
+                                   **REWARD)
+        for flag in ("terminated", "truncated", "mission_success", "crashed"):
+            np.testing.assert_array_equal(getattr(t_out, flag).numpy(),
+                                          np.asarray(getattr(j_out, flag)), err_msg=f"{at} {flag}")
+        np.testing.assert_allclose(t_next.numpy(), np.asarray(j_next), err_msg=at, **OBS)
+        assert_state_close(t_state, j_state, what=at)
+        if d.u_drop is not None:
+            drop = (d.u_drop < tp.randomization.sensor_dropout_prob).numpy()
+            np.testing.assert_array_equal(t_out.obs[:, :7].numpy()[drop],
+                                          t_prev.prev_imu.numpy()[drop], err_msg=at)
+            np.testing.assert_array_equal(np.asarray(j_out.obs)[drop, :7],
+                                          np.asarray(j_prev.prev_imu)[drop], err_msg=at)
+            counts["drops"] += int(drop.sum())
+        counts["dones"] += int((t_out.terminated | t_out.truncated).sum())
+        counts["first_successes"] += int((t_out.mission_success & ~t_prev.mission_success).sum())
+    return counts
+
+
+# a success window that random actions reach within a few steps, so the
+# first-success payout fires beside truncations and crashes
+LOOSE_SUCCESS = dict(max_tilt_angle=0.15, max_angular_velocity=2.0, max_horizontal_velocity=2.0,
+                     max_vertical_velocity=3.0, min_altitude=0.2, max_altitude=5.0,
+                     success_duration=3)
+EVERY_OPTION = dict(
+    randomization=dict(enabled=True, sensor_noise_enabled=True, sensor_noise_uniform=True,
+                       progress_rate_randomized=True, progress_rate_min=0.5,
+                       progress_rate_max=2.0, feasible_only=True, feasible_tries=8,
+                       dr_mixture_enabled=True, dr_prob=0.6, sensor_dropout_enabled=True,
+                       sensor_dropout_prob=0.3, actuator_delay=True),
+    reward=dict(survival_normalized_success=True, survival_success_scale=2.0,
+                equilibrium_relative_shaping=True),
+    success=LOOSE_SUCCESS, drift_obs_enabled=True,
+)
+# each robust-training option alone (with the domain draw where it acts on
+# it), and all of them together
+OPTION_CASES = {
+    "feasible_only": dict(randomization=dict(enabled=True, feasible_only=True,
+                                             feasible_tries=3)),
+    "dr_mixture": dict(randomization=dict(enabled=True, dr_mixture_enabled=True, dr_prob=0.5)),
+    "sensor_dropout": dict(randomization=dict(sensor_dropout_enabled=True,
+                                              sensor_dropout_prob=0.3)),
+    "actuator_delay": dict(randomization=dict(actuator_delay=True, init_tilt_max=0.2)),
+    "survival_normalized_success": dict(
+        reward=dict(survival_normalized_success=True, survival_success_scale=2.0),
+        success=LOOSE_SUCCESS),
+    "equilibrium_relative_shaping": dict(randomization=dict(enabled=True),
+                                         reward=dict(equilibrium_relative_shaping=True)),
+    "every_option": EVERY_OPTION,
+}
+
+
+def option_params(case: str | dict, max_episode_steps: int = 8) -> EnvParams:
+    """The JAX ``EnvParams`` of an ``OPTION_CASES`` entry (or such a dict)."""
+    kw = dict(OPTION_CASES[case] if isinstance(case, str) else case)
+    return EnvParams(
+        randomization=RandomizationConfig(**kw.pop("randomization", {})),
+        reward=RewardConfig(**kw.pop("reward", {})),
+        success=SuccessConfig(**kw.pop("success", {})),
+        max_episode_steps=max_episode_steps, **kw,
+    )
 
 
 RESET_CASES = {
     "dr_noise": dict(enabled=True, sensor_noise_enabled=True),
+    "dropout_noise": dict(sensor_noise_enabled=True, sensor_dropout_enabled=True,
+                          sensor_dropout_prob=0.3),
+    "feasible_mixture": dict(enabled=True, sensor_noise_enabled=True, feasible_only=True,
+                             feasible_tries=3, dr_mixture_enabled=True, dr_prob=0.5),
     "dr_noise_init": dict(enabled=True, sensor_noise_enabled=True,
                           init_tilt_max=0.2, init_omega_max=0.3, init_pos_jitter=0.1),
     "nominal": dict(),
@@ -243,3 +397,37 @@ def test_sample_idx_replays_replay_sample():
         key = jax.random.PRNGKey(seed)
         rows = j_replay.sample(buf.replace(size=jnp.int32(size)), key, 16)["x"]
         np.testing.assert_array_equal(sample_idx(key, 16, size).numpy(), np.asarray(rows))
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_step_replayed_draws_match_jax(case):
+    """With each option on, the replayed draws reproduce JAX's reset and one
+    ``step_autoreset`` (every env truncates, so the autoreset's draws are
+    all used) on the plain routes, at the env bars."""
+    jp = option_params(case, max_episode_steps=1)
+    tp = env_params_from_numpy(jp)
+    n = 32
+    chain = KeyChain(jp)
+    keys = jax.random.split(jax.random.PRNGKey(4), n)
+    j_state, j_obs = jax.vmap(j_env.reset, in_axes=(0, None))(keys, jp)
+    t_state, t_obs = t_env.reset(tp, n, device="cpu", draws=chain.reset(keys))
+    np.testing.assert_allclose(t_obs.numpy(), np.asarray(j_obs), atol=5e-6, rtol=5e-6)
+    assert_state_close(t_state, j_state, atol=5e-6, rtol=5e-6, what=case)
+    actions = np.random.default_rng(4).uniform(-1.0, 1.0, size=(n, 2)).astype(np.float32)
+    d = chain.step(j_state.key)
+    rnd = jp.randomization
+    assert (d.n_imu is not None) == rnd.sensor_noise_enabled
+    assert (d.u_drop is not None) == rnd.sensor_dropout_enabled
+    assert (d.reset.u_feas is not None) == (rnd.enabled and rnd.feasible_only)
+    assert (d.reset.n_dr is not None) == (rnd.enabled and not rnd.feasible_only)
+    j_state, j_out, j_next = jax.vmap(lambda s, a: j_env.step_autoreset(s, a, jp))(
+        j_state, jnp.asarray(actions))
+    t_state, t_out, t_next = t_env.step_autoreset(t_state, torch.from_numpy(actions), tp,
+                                                  n_imu=d.n_imu, reset_draws=d.reset,
+                                                  u_drop=d.u_drop)
+    np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_out.obs), **OBS)
+    np.testing.assert_allclose(t_out.reward.numpy(), np.asarray(j_out.reward), **REWARD)
+    np.testing.assert_array_equal(t_out.truncated.numpy(), np.asarray(j_out.truncated))
+    assert bool(t_out.truncated.all())
+    np.testing.assert_allclose(t_next.numpy(), np.asarray(j_next), atol=5e-6, rtol=5e-6)
+    assert_state_close(t_state, j_state, atol=5e-6, rtol=5e-6, what=case)

@@ -316,3 +316,42 @@ def test_env_path_hands_k1_aligned_tensors(monkeypatch):
         dones += int((out.terminated | out.truncated).sum())
     assert len(seen) == 12 and dones >= 37
     assert all(t.data_ptr() % 16 == 0 for call in seen for t in call)
+
+
+def test_env_path_hands_k1_fresh_aligned_tensors_with_every_option(monkeypatch):
+    """As above with every robust-training option on: the gathered feasible
+    candidate, the mixture-gated plant and wind and the delayed gimbal reach
+    K1 as fresh contiguous aligned tensors, never as views of the reset's
+    draws (whose storages are checked against every K1 input)."""
+    seen = []
+
+    def spy(state, control, params, mass, thrust_scale, cg_offset, wind):
+        seen.append((state.pos, state.quat, state.vel, state.omega, *control,
+                     mass, thrust_scale, cg_offset, wind))
+        return step_kernel(state, control, params, mass, thrust_scale, cg_offset, wind)
+
+    monkeypatch.setattr(t_env, "step_kernel", spy)
+    rnd = t_types.RandomizationConfig(
+        enabled=True, sensor_noise_enabled=True, sensor_noise_uniform=True,
+        progress_rate_randomized=True, progress_rate_min=0.5, feasible_only=True,
+        feasible_tries=3, dr_mixture_enabled=True, dr_prob=0.6, sensor_dropout_enabled=True,
+        sensor_dropout_prob=0.3, actuator_delay=True)
+    reward = t_types.RewardConfig(survival_normalized_success=True,
+                                  equilibrium_relative_shaping=True)
+    params = t_types.EnvParams(randomization=rnd, reward=reward, max_episode_steps=5,
+                               drift_obs_enabled=True)
+    gen = torch.Generator().manual_seed(3)
+    cpu = torch.device("cpu")
+    draws = [t_env.draw_reset(params, 37, cpu, gen) for _ in range(13)]
+    storages = {t.untyped_storage().data_ptr() for d in draws
+                for t in (d.u_init, d.u_dr, d.u_feas, d.n_feas, d.n_imu)}
+    states, _ = t_env.reset(params, 37, device="cpu", draws=draws[0])
+    dones = 0
+    for reset_draws in draws[1:]:
+        actions = torch.rand((37, 2), generator=gen) * 2.0 - 1.0
+        states, out, _ = t_env.batched_step_autoreset(states, actions, params, generator=gen,
+                                                      reset_draws=reset_draws)
+        dones += int((out.terminated | out.truncated).sum())
+    assert len(seen) == 12 and dones >= 37
+    assert all(t.data_ptr() % 16 == 0 and t.is_contiguous() for call in seen for t in call)
+    assert not storages & {t.untyped_storage().data_ptr() for call in seen for t in call}

@@ -12,6 +12,7 @@ and env keys the JAX key chain draws.
 
 from __future__ import annotations
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,6 @@ from tvc_ai_torch.convert import (
 )
 from tvc_ai_torch.models import distributions as t_dist
 from tvc_ai_torch.models.mlp import ValueNetwork as TValue
-from tvc_ai_torch.training.loop import StepDraws
 from tvc_ai_tpu.agents import ppo as j_ppo
 from tvc_ai_tpu.env import rocket_env as j_env
 from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig
@@ -252,9 +252,8 @@ def test_make_train_iteration_matches_jax():
     chain, draws = KeyChain(JAX_PARAMS), []
     for t in range(T):
         key, k_act = jax.random.split(key)
-        n_imu, reset = chain.step(env_keys[t])
-        draws.append(StepDraws(n_act=to_torch(jax.random.normal(k_act, (N, ACT))), n_imu=n_imu,
-                               reset=reset))
+        draws.append(dataclasses.replace(chain.step(env_keys[t]),
+                                         n_act=to_torch(jax.random.normal(k_act, (N, ACT)))))
     it = t_ppo.make_train_iteration(cfg_t, N, T, OBS, ACT)
     t_out, t_env_out, t_obs, _, m = it(t_state, t_env, to_torch(obs), None,
                                        env_params_from_numpy(JAX_PARAMS), draws,

@@ -13,6 +13,7 @@ The port runs free, never re-synced from JAX. Bars as the env tests: obs
 
 from __future__ import annotations
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +24,7 @@ from tvc_ai_torch.convert import actor_from_flax, env_params_from_numpy
 from tvc_ai_torch.env import rocket_env as t_env
 from tvc_ai_torch.models.mlp import GaussianActor as TActor
 from tvc_ai_torch.models.safety import SafetyConstraints as TSafety
-from tvc_ai_torch.training.loop import StepDraws, collect
+from tvc_ai_torch.training.loop import collect
 from tvc_ai_tpu.agents import sac as j_sac
 from tvc_ai_tpu.env import rocket_env as j_env
 from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig
@@ -66,9 +67,8 @@ def test_collect_matches_jax_composition():
     key = jax.random.PRNGKey(32)
     for _ in range(STEPS):
         key, k_act = jax.random.split(key)
-        n_imu, reset_draws = chain.step(j_states.key)
         n_act = torch.from_numpy(np.array(jax.random.normal(k_act, (N, 2))))
-        draws.append(StepDraws(n_act=n_act, n_imu=n_imu, reset=reset_draws))
+        draws.append(dataclasses.replace(chain.step(j_states.key), n_act=n_act))
         j_states, j_obs, out = j_body(j_states, j_obs, k_act)
         rewards.append(np.asarray(out.reward))
         terminated.append(np.asarray(out.terminated))

@@ -13,7 +13,10 @@ Cases: ``update_interval`` 1 with the ``learning_starts`` gate opening at
 the third step, the replay wrapping at the seventh, and a truncation wave
 finishing more envs in one step than the 8-slot episode ring holds;
 ``update_interval`` 2 with 2 updates per event and a demo-mixed batch
-(Q-filtered BC on); ``history_len`` 2. Bars: obs 5e-5 / 5e-4, reward and
+(Q-filtered BC on); ``history_len`` 2; and the first case's shape with
+every robust-training env option on (feasible-only draws, the mixture,
+sensor noise and dropout, actuator delay, the survival payout and
+equilibrium shaping). Bars: obs 5e-5 / 5e-4, reward and
 returns 1e-3, flags and counts exact, parameters 1e-4, metrics 1e-3
 relative.
 """
@@ -28,7 +31,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity_utils import KeyChain, assert_state_close, iteration_draws, np_tree
+from test_torch_parity_utils import (
+    EVERY_OPTION,
+    KeyChain,
+    assert_state_close,
+    iteration_draws,
+    np_tree,
+    option_params,
+)
 from tvc_ai_torch.agents import sac as t_sac
 from tvc_ai_torch.convert import env_params_from_numpy, sac_state_from_numpy, train_carry_from_numpy
 from tvc_ai_torch.training import loop as t_loop
@@ -45,16 +55,20 @@ REWARD = dict(atol=1e-3, rtol=1e-3)
 SAC = dict(hidden_dims=(32, 32), batch_size=16, buffer_size=96, learning_starts=48,
            gradient_clip_norm=5.0, reward_scale=0.05)
 LOOP = dict(num_envs=N, rollout_steps=STEPS, use_safety_layer=True, episode_ring_size=RING)
-CASES = {
-    "k1_gate_wrap_ring": (dict(), dict()),
-    "k2_demo_bc": (dict(update_interval=2, updates_per_step=2, demo_fraction=0.25),
-                   dict(bc_weight=1.0)),
-    "history2": (dict(history_len=2), dict()),
-}
 JAX_PARAMS = EnvParams(
     randomization=RandomizationConfig(enabled=True, sensor_noise_enabled=True),
     max_episode_steps=4,
 )
+# every option with the loop's 10-wide observation (no drift channels)
+ROBUST_PARAMS = option_params({k: v for k, v in EVERY_OPTION.items() if k != "drift_obs_enabled"},
+                              max_episode_steps=4)
+CASES = {
+    "k1_gate_wrap_ring": (dict(), dict(), JAX_PARAMS),
+    "k2_demo_bc": (dict(update_interval=2, updates_per_step=2, demo_fraction=0.25),
+                   dict(bc_weight=1.0), JAX_PARAMS),
+    "history2": (dict(history_len=2), dict(), JAX_PARAMS),
+    "robust_options": (dict(), dict(), ROBUST_PARAMS),
+}
 
 
 def demo_buffer(loop_cfg: j_loop.TrainLoopConfig) -> j_replay.ReplayBuffer:
@@ -71,11 +85,11 @@ def demo_buffer(loop_cfg: j_loop.TrainLoopConfig) -> j_replay.ReplayBuffer:
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def run(request):
-    loop_kw, sac_kw = CASES[request.param]
+    loop_kw, sac_kw, params = CASES[request.param]
     j_sac_cfg, t_sac_cfg = j_sac.SACConfig(**SAC, **sac_kw), t_sac.SACConfig(**SAC, **sac_kw)
     j_loop_cfg = j_loop.TrainLoopConfig(**LOOP, **loop_kw)
     t_loop_cfg = t_loop.TrainLoopConfig(**LOOP, **loop_kw)
-    carry0 = jax.jit(lambda k: j_loop.init_carry(k, JAX_PARAMS, j_sac_cfg, j_loop_cfg))(
+    carry0 = jax.jit(lambda k: j_loop.init_carry(k, params, j_sac_cfg, j_loop_cfg))(
         jax.random.PRNGKey(7))
     if j_loop_cfg.demo_fraction > 0:
         carry0 = carry0.replace(demo_buffer=demo_buffer(j_loop_cfg))
@@ -90,15 +104,15 @@ def run(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_env, "batched_step_autoreset", recording_step)
         j_it = jax.jit(j_loop.make_train_iteration(j_sac_cfg, j_loop_cfg))
-        j_carry, j_metrics = j_it(carry0, JAX_PARAMS)
+        j_carry, j_metrics = j_it(carry0, params)
         jax.effects_barrier()
     assert len(keys) == STEPS
     size0, cap = int(carry0.buffer.size), int(carry0.buffer.capacity)
     sizes = [min(size0 + (t + 1) * N, cap) for t in range(STEPS)]
-    draws = iteration_draws(KeyChain(JAX_PARAMS), carry0.key, keys, sizes, t_sac_cfg,
+    draws = iteration_draws(KeyChain(params), carry0.key, keys, sizes, t_sac_cfg,
                             t_loop_cfg, demo_size=DEMO_ROWS)
     t_it = t_loop.make_train_iteration(t_sac_cfg, t_loop_cfg)
-    t_carry, t_metrics = t_it(t_carry0, env_params_from_numpy(JAX_PARAMS), draws)
+    t_carry, t_metrics = t_it(t_carry0, env_params_from_numpy(params), draws)
     return dict(case=request.param, j=j_carry, jm=j_metrics, t=t_carry, tm=t_metrics,
                 t_cfg=t_sac_cfg, t_loop=t_loop_cfg, sizes=sizes)
 

@@ -256,7 +256,7 @@ def make_ensemble_iteration(
                                     generator=gen)
         env_states, out, next_obs = rocket_env.batched_step_autoreset(
             carry.env_states, actions, env_params, generator=gen, n_imu=sd.n_imu,
-            reset_draws=sd.reset)
+            reset_draws=sd.reset, u_drop=sd.u_drop)
         terminated = out.terminated.to(torch.float32)
         buffer = replay.add_batch(carry.buffer, {
             "obs": carry.obs,

@@ -257,7 +257,7 @@ def make_train_iteration(
             action, pre_tanh, logp, value = act(state, obs, d.n_act, generator)
             env_states, out, next_obs = rocket_env.batched_step_autoreset(
                 env_states, action, env_params, generator=generator, n_imu=d.n_imu,
-                reset_draws=d.reset)
+                reset_draws=d.reset, u_drop=d.u_drop)
             ended = out.terminated | out.truncated
             steps.append({"obs": obs, "pre_tanh": pre_tanh, "log_prob": logp, "value": value,
                           "reward": out.reward, "done": out.terminated.to(torch.float32),

@@ -9,8 +9,7 @@ reference keeps as a Python float). ``build_sac_config`` and
 ``training.loop.TrainLoopConfig``.
 
 An option the port cannot honour raises ``NotImplementedError`` here, when
-the config is built, never later and never silently: the env options the
-env raises on (``rocket_env.check_supported``), bfloat16 and the
+the config is built, never later and never silently: bfloat16 and the
 transformer policy (``SACConfig``), and ICM, RND, physics-informed and
 hierarchical training.
 """
@@ -21,7 +20,6 @@ import math
 
 from tvc_ai_torch.agents.sac import SACConfig
 from tvc_ai_torch.config.schema import CurriculumStage, FrameworkConfig
-from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import (
     ACTION_OBS_DIM,
     DRIFT_OBS_DIM,
@@ -135,7 +133,7 @@ def build_env_params(
             f"env.trim_observation.mode={trim.mode!r} (want 'ema'|'integral')"
         )
     drift = e.drift_observation
-    params = as_float32(EnvParams(
+    return as_float32(EnvParams(
         rocket=rocket,
         randomization=rnd,
         success=success,
@@ -152,8 +150,6 @@ def build_env_params(
         drift_obs_pos_scale=drift.pos_scale,
         action_obs_enabled=e.action_observation.enabled,
     ))
-    rocket_env.check_supported(params)
-    return params
 
 
 def build_sac_config(cfg: FrameworkConfig) -> SACConfig:

@@ -84,8 +84,8 @@ def _tensor(x: Any, device: torch.device) -> torch.Tensor:
 def env_state_from_numpy(state: Any, device: str | torch.device = DEFAULT_DEVICE) -> EnvState:
     """``EnvState`` from a batched JAX ``EnvState`` mapped to numpy.
 
-    The JAX state's ``key`` and ``prev_imu`` fields have no counterpart here
-    and are dropped.
+    The JAX state's ``key`` has no counterpart here and is dropped;
+    ``prev_imu`` (held only with sensor dropout on) is carried when present.
     """
     dev = resolve_device(device)
     body, dr = _get(state, "body"), _get(state, "dr")
@@ -101,6 +101,9 @@ def env_state_from_numpy(state: Any, device: str | torch.device = DEFAULT_DEVICE
                 **{g.name: _tensor(_get(dr, g.name), dev)
                    for g in dataclasses.fields(DomainParams)}
             )
+        elif f.name == "prev_imu":
+            prev = _get(state, f.name) if _has(state, f.name) else None
+            fields[f.name] = None if prev is None else _tensor(prev, dev)
         else:
             fields[f.name] = _tensor(_get(state, f.name), dev)
     return EnvState(**fields)

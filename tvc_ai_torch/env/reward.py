@@ -3,7 +3,9 @@
 Counterpart of ``tvc_ai_tpu/env/reward.py::compute_reward``. The variance
 penalty uses the reference's masked population variance over the rolling
 window (mask on the first ``len`` slots, mean over the whole window sum),
-not ``torch.var``.
+not ``torch.var``. The two optional terms that need the env's state, the
+survival-normalized success payout and equilibrium-relative tilt shaping,
+live in ``rocket_env._post_physics``, as in the reference.
 """
 
 from __future__ import annotations
@@ -11,12 +13,6 @@ from __future__ import annotations
 import torch
 
 from tvc_ai_torch.env.types import PHASE_LANDING, RewardConfig
-
-
-def check_supported(cfg: RewardConfig) -> None:
-    for name in ("survival_normalized_success", "equilibrium_relative_shaping"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"RewardConfig.{name} is not ported")
 
 
 def compute_reward(

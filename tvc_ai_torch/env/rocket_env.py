@@ -10,9 +10,11 @@ Randomness is explicit. Each function that draws takes its draws as optional
 tensors and otherwise draws them from ``generator`` on the device:
 
 - reset: ``ResetDraws`` — ``u_init`` (N, 7) uniform [-1, 1], the domain draws
-  ``u_dr`` (N, 7) and ``n_dr`` (N, 3), and the first observation's IMU noise
-  ``n_imu`` (N, 7) standard normal;
-- step: ``n_imu`` (N, 7), the IMU noise of the new observation;
+  ``u_dr`` (N, 7) and ``n_dr`` (N, 3) (or, with ``feasible_only``, the
+  candidates ``u_feas`` (N, K, 4) and ``n_feas`` (N, K, 3)), and the first
+  observation's IMU noise ``n_imu`` (N, 7) standard normal;
+- step: ``n_imu`` (N, 7), the IMU noise of the new observation, and
+  ``u_drop`` (N,) uniform [0, 1), its sensor-dropout draw;
 - autoreset: one ``ResetDraws`` for all N envs, used where an episode ended
   (the reset is computed for every env and selected by mask, with no host
   synchronisation).
@@ -21,11 +23,18 @@ tensors and otherwise draws them from ``generator`` on the device:
 kernel (``ops.step_kernel``; its plain version on CPU tensors), post-physics,
 then the masked autoreset. ``batched_step`` is the same step without the
 autoreset (the evaluation rollout's); ``step`` is the plain reference.
+
+The robust-training options act around the integrate, never in it: actuator
+delay hands the physics the previous command, sensor dropout holds the last
+presented IMU reading (``EnvState.prev_imu``), equilibrium-relative shaping
+and the survival-normalized payout change the reward, and feasible-only draws
+and the easy/hard mixture change the reset's domain draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -56,20 +65,17 @@ class ResetDraws:
     """The random numbers one reset of N envs consumes.
 
     ``u_dr`` is needed when any uniform domain draw is on, ``n_dr`` when
-    domain randomization is on, ``n_imu`` when sensor noise is on; unneeded
-    fields may be ``None``.
+    domain randomization is on without ``feasible_only``, ``u_feas`` and
+    ``n_feas`` (K = ``feasible_tries`` candidates) when it is on with it,
+    ``n_imu`` when sensor noise is on; unneeded fields may be ``None``.
     """
 
     u_init: torch.Tensor
     u_dr: torch.Tensor | None = None
     n_dr: torch.Tensor | None = None
     n_imu: torch.Tensor | None = None
-
-
-def check_supported(params: EnvParams) -> None:
-    """Raise ``NotImplementedError`` for the options this port does not have."""
-    randomization.check_supported(params.randomization)
-    reward_mod.check_supported(params.reward)
+    u_feas: torch.Tensor | None = None   # (N, K, 4) uniform [-1, 1)
+    n_feas: torch.Tensor | None = None   # (N, K, 3) standard normal
 
 
 def draw_reset(
@@ -78,6 +84,8 @@ def draw_reset(
 ) -> ResetDraws:
     """Draw what a reset of n envs needs (only the fields the config uses)."""
     rnd = params.randomization
+    # the feasibility candidates replace the single normal draw
+    feasible, k = rnd.enabled and rnd.feasible_only, rnd.feasible_tries
     return ResetDraws(
         u_init=randomization.draw_uniform((n, 7), device, generator),
         u_dr=(
@@ -86,11 +94,15 @@ def draw_reset(
         ),
         n_dr=(
             torch.randn((n, 3), device=device, generator=generator)
-            if rnd.enabled else None
+            if rnd.enabled and not feasible else None
         ),
         n_imu=(
             torch.randn((n, 7), device=device, generator=generator)
             if rnd.sensor_noise_enabled else None
+        ),
+        u_feas=randomization.draw_uniform((n, k, 4), device, generator) if feasible else None,
+        n_feas=(
+            torch.randn((n, k, 3), device=device, generator=generator) if feasible else None
         ),
     )
 
@@ -104,11 +116,20 @@ def _observe(
     noise_std: torch.Tensor,
     progress_rate: torch.Tensor,
     n_imu: torch.Tensor | None,
-) -> torch.Tensor:
+    prev_imu: torch.Tensor | None = None,
+    u_drop: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(N, 10) observation [quat, ω, fuel, phase/7, progress], IMU noise on
-    the quaternion (renormalized) and ω when sensor noise is on."""
+    the quaternion (renormalized) and ω when sensor noise is on.
+
+    With sensor dropout on, the IMU channels hold ``prev_imu`` where
+    ``u_drop < sensor_dropout_prob`` (no drop without a ``prev_imu``: the
+    reset's first reading). Returns ``(obs, imu)``: ``imu`` is the presented
+    (N, 7) [quat, ω] reading, the next ``prev_imu``; None without dropout.
+    """
+    rnd = params.randomization
     q, w = body.quat, body.omega
-    if params.randomization.sensor_noise_enabled:
+    if rnd.sensor_noise_enabled:
         noise = n_imu * noise_std[:, None]
         q = quat.normalize(q + noise[:, :4])
         w = w + noise[:, 4:]
@@ -117,9 +138,13 @@ def _observe(
         step_count.to(torch.float32) * progress_rate / params.max_episode_steps,
         max=1.0,
     )
-    return torch.cat(
-        [q, w, fuel[:, None], phase_value[:, None], progress[:, None]], dim=-1
-    )
+    tail = [fuel[:, None], phase_value[:, None], progress[:, None]]
+    if not rnd.sensor_dropout_enabled:
+        return torch.cat([q, w, *tail], dim=-1), None
+    imu = torch.cat([q, w], dim=-1)
+    if prev_imu is not None:
+        imu = torch.where((u_drop < rnd.sensor_dropout_prob)[:, None], prev_imu, imu)
+    return torch.cat([imu, *tail], dim=-1), imu
 
 
 def _append_trim(obs: torch.Tensor, trim: torch.Tensor, params: EnvParams) -> torch.Tensor:
@@ -156,7 +181,8 @@ def _reset_from_draws(params: EnvParams, draws: ResetDraws) -> tuple[EnvState, t
     u = draws.u_init
     n, dev, f32 = u.shape[0], u.device, torch.float32
     dr = randomization.sample_domain_params(
-        params.rocket, rnd, n, dev, u_dr=draws.u_dr, n_dr=draws.n_dr
+        params.rocket, rnd, n, dev, u_dr=draws.u_dr, n_dr=draws.n_dr,
+        u_feas=draws.u_feas, n_feas=draws.n_feas,
     )
     # tilt angle ~ U[0, max], azimuth ~ U[-π, π], ω and xy position jitter
     angle = (u[:, 0] * 0.5 + 0.5) * rnd.init_tilt_max
@@ -177,8 +203,9 @@ def _reset_from_draws(params: EnvParams, draws: ResetDraws) -> tuple[EnvState, t
     fuel = torch.ones(n, dtype=f32, device=dev)
     phase = torch.full((n,), PHASE_BOOST, dtype=torch.int32, device=dev)
     zeros_i = torch.zeros(n, dtype=torch.int32, device=dev)
-    obs = _observe(body, fuel, phase, zeros_i, params, dr.sensor_noise_std,
-                   dr.progress_rate, draws.n_imu)
+    # no dropout at reset: the first presented reading seeds prev_imu
+    obs, imu = _observe(body, fuel, phase, zeros_i, params, dr.sensor_noise_std,
+                        dr.progress_rate, draws.n_imu)
     trim = torch.zeros(n, TRIM_OBS_DIM, dtype=f32, device=dev)
     prev_action = torch.zeros(n, ACTION_DIM, dtype=f32, device=dev)
     obs = _append_trim(obs, trim, params)
@@ -198,6 +225,7 @@ def _reset_from_draws(params: EnvParams, draws: ResetDraws) -> tuple[EnvState, t
         reward_window_len=zeros_i,
         trim=trim,
         dr=dr,
+        prev_imu=imu,
     )
     return state, obs
 
@@ -211,7 +239,6 @@ def reset(
 ) -> tuple[EnvState, torch.Tensor]:
     """Reset n envs: pose ``init_pos``/upright plus any configured initial
     randomization, a fresh domain draw, the first observation."""
-    check_supported(params)
     dev = resolve_device(device)
     if draws is None:
         draws = draw_reset(params, n, dev, generator)
@@ -224,9 +251,12 @@ def reset(
 
 
 def _pre_physics(state: EnvState, action: torch.Tensor, params: EnvParams):
-    """Action conditioning and the fuel gate (checked before the burn)."""
+    """Action conditioning and the fuel gate (checked before the burn). With
+    actuator delay the physics gets the previous command; the reward, the
+    smoothness and trim terms and the action channels keep this one."""
     action = torch.clamp(action, -1.0, 1.0)
-    gimbal = action * params.rocket.max_gimbal
+    applied = state.prev_action if params.randomization.actuator_delay else action
+    gimbal = applied * params.rocket.max_gimbal
     thrust_active = state.fuel > 0.0
     fuel = torch.where(
         thrust_active,
@@ -243,6 +273,7 @@ def _post_physics(
     fuel: torch.Tensor,
     params: EnvParams,
     n_imu: torch.Tensor | None,
+    u_drop: torch.Tensor | None = None,
 ) -> tuple[EnvState, StepOutput]:
     """Everything after the rigid-body integrate: observation, FSM, reward,
     termination."""
@@ -255,8 +286,10 @@ def _post_physics(
     crashed = altitude < params.termination.crash_altitude
 
     # observation with the PRE-update phase
-    obs = _observe(body, fuel, state.phase, step_count, params,
-                   state.dr.sensor_noise_std, state.dr.progress_rate, n_imu)
+    obs, imu = _observe(body, fuel, state.phase, step_count, params,
+                        state.dr.sensor_noise_std, state.dr.progress_rate, n_imu,
+                        prev_imu=state.prev_imu, u_drop=u_drop)
+    # obs[:, :2] is the presented qx, qy reading (after noise and dropout)
     trim = state.trim
     if params.trim_obs_enabled:
         d = params.trim_obs_decay
@@ -281,11 +314,20 @@ def _post_physics(
     )
     mission_success = state.mission_success | completed | window_success
 
-    # reward with the PRE-update phase and success flag
+    # reward with the PRE-update phase and success flag; with equilibrium-
+    # relative shaping its tilt is measured from the episode's hover axis
+    # (gimbal -> CG line world-vertical); the FSM and termination keep the
+    # true tilt
+    rcfg = params.reward
+    reward_tilt = tilt
+    if rcfg.equilibrium_relative_shaping:
+        to_cg = state.dr.cg_offset - _constant(params.rocket.thrust_offset, body.quat.device)
+        bhat = to_cg / torch.linalg.vector_norm(to_cg, dim=-1, keepdim=True)
+        reward_tilt = torch.arccos(torch.clamp(quat.rotate(body.quat, bhat)[:, 2], -1.0, 1.0))
     total_reward, reward_window, reward_window_len, components = reward_mod.compute_reward(
-        params.reward,
+        rcfg,
         altitude=altitude,
-        tilt=tilt,
+        tilt=reward_tilt,
         angular_velocity_mag=ang_mag,
         fuel=fuel,
         crashed=crashed,
@@ -297,6 +339,17 @@ def _post_physics(
         reward_window=state.reward_window,
         reward_window_len=state.reward_window_len,
     )
+    if rcfg.survival_normalized_success:
+        # a one-time payout on the first success step, after the per-step
+        # clip: the mean of the window this step filled (its reward
+        # included) times the steps left
+        first = (completed | window_success) & ~state.mission_success
+        fill = torch.clamp(reward_window_len.to(torch.float32), 1.0,
+                           float(rcfg.variance_window))
+        mean = reward_window.sum(dim=-1) / fill
+        remaining = torch.clamp(params.max_episode_steps - step_count, min=0).to(torch.float32)
+        total_reward = total_reward + torch.where(
+            first, torch.clamp(mean, min=0.0) * remaining * rcfg.survival_success_scale, 0.0)
 
     # termination with the POST-update success flag
     term = params.termination
@@ -324,6 +377,7 @@ def _post_physics(
         reward_window_len=reward_window_len,
         trim=trim,
         dr=state.dr,
+        prev_imu=imu,
     )
     out = StepOutput(
         obs=obs,
@@ -342,16 +396,30 @@ def _post_physics(
     return new_state, out
 
 
-def _n_imu(params: EnvParams, like: torch.Tensor, generator, n_imu):
-    if n_imu is None and params.randomization.sensor_noise_enabled:
-        n_imu = torch.randn((like.shape[0], 7), device=like.device, generator=generator)
-    return n_imu
+@functools.lru_cache(maxsize=16)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of ``values`` on ``device``, made once (a fresh
+    host-to-device copy per step would synchronise)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def _step(state, action, params, integrate, generator, n_imu):
+def _step_draws(params: EnvParams, like: torch.Tensor, generator, n_imu, u_drop):
+    """The step's IMU noise and dropout draws, from ``generator`` where not given."""
+    rnd = params.randomization
+    n = like.shape[0]
+    if n_imu is None and rnd.sensor_noise_enabled:
+        n_imu = torch.randn((n, 7), device=like.device, generator=generator)
+    if u_drop is None and rnd.sensor_dropout_enabled:
+        u_drop = torch.rand((n,), device=like.device, generator=generator)
+    return n_imu, u_drop
+
+
+def _step(state, action, params, integrate, generator, n_imu, u_drop):
     """Pre-physics, ``integrate`` (the plain integrator or K1), post-physics."""
-    check_supported(params)
-    n_imu = _n_imu(params, action, generator, n_imu)
+    if params.randomization.sensor_dropout_enabled and state.prev_imu is None:
+        raise ValueError("sensor dropout is on but the state holds no prev_imu; "
+                         "reset it with these parameters")
+    n_imu, u_drop = _step_draws(params, action, generator, n_imu, u_drop)
     action, gimbal, thrust_active, fuel = _pre_physics(state, action, params)
     body = integrate(
         state.body,
@@ -362,7 +430,7 @@ def _step(state, action, params, integrate, generator, n_imu):
         cg_offset=state.dr.cg_offset,
         wind=state.dr.wind,
     )
-    return _post_physics(state, body, action, fuel, params, n_imu)
+    return _post_physics(state, body, action, fuel, params, n_imu, u_drop)
 
 
 def step(
@@ -371,9 +439,10 @@ def step(
     params: EnvParams,
     generator: torch.Generator | None = None,
     n_imu: torch.Tensor | None = None,
+    u_drop: torch.Tensor | None = None,
 ) -> tuple[EnvState, StepOutput]:
     """One control step of N envs, no autoreset, plain integrator."""
-    return _step(state, action, params, physics_step, generator, n_imu)
+    return _step(state, action, params, physics_step, generator, n_imu, u_drop)
 
 
 def _finish_autoreset(
@@ -403,6 +472,7 @@ def step_autoreset(
     generator: torch.Generator | None = None,
     n_imu: torch.Tensor | None = None,
     reset_draws: ResetDraws | None = None,
+    u_drop: torch.Tensor | None = None,
 ) -> tuple[EnvState, StepOutput, torch.Tensor]:
     """``step`` then the masked reset; returns (state, out, next_policy_obs).
 
@@ -410,7 +480,7 @@ def step_autoreset(
     equals it except where the episode ended, where it is the first
     observation of the fresh episode.
     """
-    new_state, out = step(state, action, params, generator, n_imu)
+    new_state, out = step(state, action, params, generator, n_imu, u_drop)
     return _finish_autoreset(new_state, out, params, generator, reset_draws)
 
 
@@ -426,13 +496,14 @@ def batched_step(
     params: EnvParams,
     generator: torch.Generator | None = None,
     n_imu: torch.Tensor | None = None,
+    u_drop: torch.Tensor | None = None,
 ) -> tuple[EnvState, StepOutput]:
     """The production N-env step without autoreset (the evaluation rollout's):
     ``step`` with the integrate done by K1 whenever ``pallas_physics_ok``.
     The opt-in physics terms K1 does not implement take the plain integrator.
     On CPU tensors K1's wrapper runs its plain version."""
     integrate = step_kernel if pallas_physics_ok(params) else physics_step
-    return _step(states, actions, params, integrate, generator, n_imu)
+    return _step(states, actions, params, integrate, generator, n_imu, u_drop)
 
 
 def batched_step_autoreset(
@@ -442,11 +513,12 @@ def batched_step_autoreset(
     generator: torch.Generator | None = None,
     n_imu: torch.Tensor | None = None,
     reset_draws: ResetDraws | None = None,
+    u_drop: torch.Tensor | None = None,
 ) -> tuple[EnvState, StepOutput, torch.Tensor]:
     """The production N-env step: ``step_autoreset`` with the integrate done
     by K1 (``ops.step_kernel``) whenever ``pallas_physics_ok``, and by the
     plain integrator for the opt-in terms K1 does not implement. On CPU
     tensors K1's wrapper runs its plain version.
     """
-    new_state, out = batched_step(states, actions, params, generator, n_imu)
+    new_state, out = batched_step(states, actions, params, generator, n_imu, u_drop)
     return _finish_autoreset(new_state, out, params, generator, reset_draws)

@@ -50,8 +50,10 @@ class DomainParams:
 
 @dataclasses.dataclass(frozen=True)
 class RandomizationConfig:
-    """Randomization ranges. ``dr_mixture_enabled``, ``sensor_dropout_enabled``,
-    ``actuator_delay`` and ``feasible_only`` are not ported and raise."""
+    """Randomization ranges and the robust-training options: the easy/hard
+    mixture (``dr_mixture_enabled``, gate ``dr_prob``), feasible-only draws
+    (``feasible_only``, ``feasible_tries`` candidates), hold-last sensor
+    dropout and a one-step actuator delay."""
 
     enabled: bool = False
     sensor_noise_enabled: bool = False
@@ -92,8 +94,8 @@ class SuccessConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RewardConfig:
-    """Multi-objective reward weights. ``survival_normalized_success`` and
-    ``equilibrium_relative_shaping`` are not ported and raise."""
+    """Multi-objective reward weights, with the optional survival-normalized
+    success payout and equilibrium-relative tilt shaping."""
 
     mission_completion_weight: float = 100.0
     safety_compliance_weight: float = 50.0
@@ -197,6 +199,9 @@ class EnvState:
     reward_window_len: torch.Tensor  # (N,) int32
     trim: torch.Tensor               # (N, 4), zeros unless trim_obs_enabled
     dr: DomainParams
+    # (N, 7) last presented [quat, ω] reading, held on sensor-dropout steps;
+    # None unless sensor dropout is enabled (its only consumer)
+    prev_imu: torch.Tensor | None = None
 
 
 @dataclasses.dataclass

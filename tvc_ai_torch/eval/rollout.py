@@ -12,8 +12,9 @@ has ended: a finished episode's statistics are frozen, so the rest of the
 horizon cannot change them. It reads ``done.all()`` from the device once
 every ``check_every`` steps (32 by default), never more often.
 
-Randomness is explicit: the reset's draws and each step's IMU noise come
-from ``EvalDraws`` when given, otherwise from the generator.
+Randomness is explicit: the reset's draws and each step's IMU noise and
+sensor-dropout draw come from ``EvalDraws`` when given, otherwise from the
+generator.
 """
 
 from __future__ import annotations
@@ -47,11 +48,18 @@ class EpisodeStats(NamedTuple):
 
 @dataclasses.dataclass
 class EvalDraws:
-    """The random numbers one evaluation consumes: the reset's, and the IMU
-    noise of step t in row t of ``n_imu`` (T, E, 7) when sensor noise is on."""
+    """The random numbers one evaluation consumes: the reset's, and step t's
+    in row t of ``n_imu`` (T, E, 7) when sensor noise is on and of
+    ``u_drop`` (T, E) when sensor dropout is on."""
 
     reset: ResetDraws | None = None
     n_imu: torch.Tensor | None = None
+    u_drop: torch.Tensor | None = None
+
+    def step(self, t: int) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """Step t's (IMU noise, dropout draw); None where not given."""
+        return (None if self.n_imu is None else self.n_imu[t],
+                None if self.u_drop is None else self.u_drop[t])
 
 
 def steps_run(lengths: torch.Tensor, horizon: int, check_every: int = CHECK_EVERY) -> int:
@@ -127,9 +135,9 @@ def make_policy_eval_fn(policy_fn: Callable, num_episodes: int, history_len: int
                 break
             view = obs.reshape(e, -1) if history_len > 1 else obs
             actions = policy_fn(agent, view)
-            n_imu = draws.n_imu[t] if draws is not None and draws.n_imu is not None else None
+            n_imu, u_drop = draws.step(t) if draws is not None else (None, None)
             new_states, out = rocket_env.batched_step(
-                states, actions, env_params, generator=generator, n_imu=n_imu)
+                states, actions, env_params, generator=generator, n_imu=n_imu, u_drop=u_drop)
             live = ~done
             ret = ret + torch.where(live, out.reward, 0.0)
             length = length + live.to(torch.int32)
@@ -224,9 +232,9 @@ def make_trajectory_fn(
         for t in range(env_params.max_episode_steps):
             view = obs.reshape(e, -1) if history_len > 1 else obs
             actions = policy_fn(agent, view)
-            n_imu = draws.n_imu[t] if draws is not None and draws.n_imu is not None else None
+            n_imu, u_drop = draws.step(t) if draws is not None else (None, None)
             new_states, out = rocket_env.batched_step(
-                states, actions, env_params, generator=generator, n_imu=n_imu)
+                states, actions, env_params, generator=generator, n_imu=n_imu, u_drop=u_drop)
             records.append({
                 "altitude": out.altitude,
                 "tilt": out.tilt,

@@ -106,6 +106,7 @@ class StepDraws:
     n_act: torch.Tensor | None = None   # (N, 2) exploration noise
     n_imu: torch.Tensor | None = None   # (N, 7) IMU noise of the new obs
     reset: ResetDraws | None = None     # the autoreset's draws
+    u_drop: torch.Tensor | None = None  # (N,) U[0, 1) sensor-dropout draw
 
 
 @dataclasses.dataclass
@@ -269,7 +270,7 @@ def make_train_iteration(
             )
         return rocket_env.batched_step_autoreset(
             states, actions, env_params, generator=generator, n_imu=d.n_imu,
-            reset_draws=d.reset)
+            reset_draws=d.reset, u_drop=d.u_drop)
 
     def learn(agent, buffer, demo_buffer, samples, generator):
         """``updates_per_step`` updates, their metrics averaged."""
@@ -476,7 +477,7 @@ def collect(
             actions, _ = apply_safety(obs, actions, safety)
         env_states, out, obs = rocket_env.batched_step_autoreset(
             env_states, actions, env_params,
-            generator=generator, n_imu=d.n_imu, reset_draws=d.reset,
+            generator=generator, n_imu=d.n_imu, reset_draws=d.reset, u_drop=d.u_drop,
         )
         rewards.append(out.reward)
         terminated.append(out.terminated)
