@@ -89,6 +89,19 @@ stage), times the env step with the options on against the same step with
 them off in turns, and profiles 4 learning steps; [11c] resumes it bit for
 bit.
 
+Phases [12a], [12b] and [12c] drive the SAC learner's extensions. [12a]
+holds ten ``sac.update``s at batch 256 with ``transformer_r3.yaml``'s
+transformer actor (d_model 128, 8 heads, 2 layers, an EMA actor) and one act
+at 512 on the card against the CPU. [12b] trains ``transformer_r3.yaml`` at
+its widths (512 envs, history 4, 16 updates of batch 1024 per step) with
+``rollout_steps`` cut from 128 to 16 for two iterations and its final eval,
+resumes it bit for bit, profiles two learning steps and times one
+``sac.update`` at batch 1024. [12c] holds one train iteration with ICM, the
+physics-informed loss, RND and hierarchical RL on (256 envs x 8 steps) on the
+card against the CPU, trains the default config with the four on for one
+32-step iteration with its hierarchical eval and a bit-equal resume, and
+times the env step with the extensions on against off, in turns.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
@@ -119,11 +132,19 @@ import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
 
 from tvc_ai_torch.agents import ensemble, ppo, replay, sac, td3
-from tvc_ai_torch.config import build_env_params, build_sac_config, default_config_path, load_config
+from tvc_ai_torch.config import (
+    build_env_params,
+    build_loop_config,
+    build_sac_config,
+    default_config_path,
+    load_config,
+)
 from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.eval.evaluate import _suite_env_params, run_all_suites
 from tvc_ai_torch.eval.rollout import EvalDraws, make_eval_fn, steps_run, summarize_stats
+from tvc_ai_torch.models import hierarchical as hier_mod
+from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.physics import integrator
 from tvc_ai_torch.physics.integrator import ThrustControl
@@ -541,18 +562,24 @@ MEMBER_NETS = {"sac": ("actor", "critic", "target_critic"),
                "ppo": ("actor", "value")}
 
 
+def net_param_err(a: torch.nn.Module, b: torch.nn.Module, what: str, hold: bool = True) -> float:
+    """Largest |card - CPU| over a module's parameters; with ``hold``, fails
+    beyond PARAMS."""
+    err = 0.0
+    for (name, p), q in zip(a.named_parameters(), b.parameters(), strict=True):
+        if hold:
+            torch.testing.assert_close(p.detach().cpu(), q.detach(), **PARAMS,
+                                       msg=f"{what}.{name}")
+        err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
+    return err
+
+
 def member_param_err(a, b, hold: bool = True) -> float:
     """Largest |card - CPU| over every parameter of every member; with
     ``hold``, fails beyond PARAMS."""
-    err = 0.0
-    for member, names in MEMBER_NETS.items():
-        for net in names:
-            for (name, p), q in zip(getattr(getattr(a, member), net).named_parameters(),
-                                    getattr(getattr(b, member), net).parameters()):
-                if hold:
-                    torch.testing.assert_close(p.detach().cpu(), q.detach(), **PARAMS,
-                                               msg=f"{member}.{net}.{name}")
-                err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
+    err = max(net_param_err(getattr(getattr(a, member), net), getattr(getattr(b, member), net),
+                            f"{member}.{net}", hold)
+              for member, names in MEMBER_NETS.items() for net in names)
     if hold:
         torch.testing.assert_close(a.sac.log_alpha.cpu(), b.sac.log_alpha, **PARAMS)
     return err
@@ -1145,6 +1172,372 @@ def run_robust_trainer(scratch: Path, dev, overrides=()) -> int:
     return launches
 
 
+TRANSFORMER_YAML = "transformer_r3.yaml"
+TF_BATCH, TF_UPDATES, TF_ACT_N = 256, 10, 512   # [12a] card vs CPU
+TF_ROLLOUT = 16                                 # [12b] rollout_steps, cut from 128
+TF_PROFILE_STEPS = 2                            # [12b] profiled learning steps
+EXT_N, EXT_STEPS = 256, 8                       # [12c] card vs CPU, 8-step episodes
+EXT_RND_EVERY = 3                               # [12c] card vs CPU: RND updates at steps 0, 3, 6
+EXT_ROLLOUT = 32                                # [12c] trainer rollout_steps, cut from 128
+EXT_COST_STEPS = 16                             # [12c] env steps per timed window, on / off
+EXTENSIONS_ON = ["exploration.curiosity.enabled=true",
+                 "exploration.random_network_distillation.enabled=true",
+                 "physics_informed.enabled=true", "hierarchical_rl.enabled=true"]
+
+
+def transformer_config(overrides=()):
+    return load_config(default_config_path().parent / TRANSFORMER_YAML, list(overrides))
+
+
+def transformer_card_vs_cpu(dev) -> float:
+    """[12a]: ten ``sac.update``s at batch 256 with ``transformer_r3.yaml``'s
+    actor (d_model 128, 8 heads, 2 layers, a 40-wide history-4 input) and an
+    EMA actor, then one act at 512, card against CPU from the same weights on
+    the same batches and draws; returns the largest parameter difference."""
+    cfg = dataclasses.replace(build_sac_config(transformer_config()), batch_size=TF_BATCH)
+    n_obs = 10 * transformer_config().network.history_len
+    gen = torch.Generator().manual_seed(SEED + 50)
+
+    def batch():
+        return {"obs": torch.randn((TF_BATCH, n_obs), generator=gen),
+                "action": torch.rand((TF_BATCH, 2), generator=gen) * 2.0 - 1.0,
+                "reward": torch.randn(TF_BATCH, generator=gen) * 30.0,
+                "next_obs": torch.randn((TF_BATCH, n_obs), generator=gen),
+                "done": (torch.rand(TF_BATCH, generator=gen) < 0.1).to(torch.float32)}
+
+    batches = [batch() for _ in range(TF_UPDATES)]
+    draws = [sac.UpdateDraws(n_next=torch.randn((TF_BATCH, 2), generator=gen),
+                             n_pi=torch.randn((TF_BATCH, 2), generator=gen))
+             for _ in range(TF_UPDATES)]
+    act_obs, act_noise = torch.randn((TF_ACT_N, n_obs), generator=gen), torch.randn(
+        (TF_ACT_N, 2), generator=gen)
+    out = []
+    for where in (torch.device("cpu"), dev):
+        agent = sac.init(n_obs, 2, cfg, device=where, seed=SEED)
+        for b, d in zip(batches, draws):
+            agent, metrics = sac.update(agent, {k: v.to(where) for k, v in b.items()}, cfg,
+                                        to_device(d, where))
+        act = sac.select_action(agent.actor, act_obs.to(where), act_noise.to(where))
+        out.append((agent, metrics, act))
+    torch.cuda.synchronize()
+    (b, bm, b_act), (a, am, a_act) = out
+    assert isinstance(a.actor, TransformerActor) and a.step == b.step == TF_UPDATES
+    err = max(net_param_err(getattr(a, net), getattr(b, net), net)
+              for net in ("actor", "critic", "target_critic", "ema_actor"))
+    torch.testing.assert_close(a.log_alpha.cpu(), b.log_alpha, **PARAMS)
+    torch.testing.assert_close(a_act.cpu(), b_act, **PARAMS)
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    n_tensors = len(list(a.actor.parameters()))
+    log(f"[12a] transformer actor ({TRANSFORMER_YAML}: d_model {cfg.transformer_d_model}, "
+        f"{cfg.transformer_heads} heads, {cfg.transformer_layers} layers, feed-forward 512, heads "
+        f"(512, 512), {n_tensors} parameter tensors, "
+        f"{sum(p.numel() for p in a.actor.parameters())} parameters; obs {n_obs}), "
+        f"{TF_UPDATES} sac.update at batch {TF_BATCH} with the EMA actor, card vs CPU: max |d "
+        f"param| {err:.3e} (atol {PARAMS['atol']}), one act at {TF_ACT_N}: max |d action| "
+        f"{float((a_act.cpu() - b_act).abs().max()):.3e}; actor_loss {float(am['actor_loss']):.6g} "
+        f"vs {float(bm['actor_loss']):.6g}: ok")
+    return err
+
+
+def run_transformer_trainer(scratch: Path, dev) -> int:
+    """[12b]: ``Trainer`` on ``transformer_r3.yaml`` at its widths with
+    ``rollout_steps`` cut to 16, two iterations and its final eval, the
+    resume from the final checkpoint bit for bit, a profiled learning step,
+    and one ``sac.update`` at batch 1024 timed alone. Returns the two
+    iterations' K1 launches."""
+    cfg = transformer_config([f"training.rollout_steps={TF_ROLLOUT}"])
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = 2 * n * TF_ROLLOUT
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, output_dir=scratch / "transformer", device=dev)
+    assert isinstance(tr.carry.agent.actor, TransformerActor)
+    evals: list = []
+    counting_evals(tr, evals)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches = k1.step_kernel.launches
+    timing = result["stage_timing"]
+    iters = result["iterations"]
+    assert iters == 2 and result["env_steps"] == 2 * n * TF_ROLLOUT, result
+    assert launches == iters * TF_ROLLOUT + sum(k for k, _, _ in evals), (launches, evals)
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert evals and all(math.isfinite(v) for v in metrics.values()), metrics
+    per = cfg.training.updates_per_step
+    learned = sum((t + 1) * n >= tr.sac_cfg.learning_starts for t in range(2 * TF_ROLLOUT))
+    assert tr.carry.agent.step == per * learned, (tr.carry.agent.step, per, learned)
+    train_s = timing["train_iteration"]["total_sec"]
+    data = tr.carry.buffer.data
+    replay_mb = sum(t.numel() * t.element_size() for t in data.values()) / 1e6
+    log(f"[12b] {TRANSFORMER_YAML} ({n} envs, history {tr.loop_cfg.history_len}: obs "
+        f"{data['obs'].shape[1]}, SAC batch {tr.sac_cfg.batch_size}, {per} updates per step, "
+        f"ent_coef {tr.sac_cfg.alpha:g} fixed, EMA {tr.sac_cfg.ema_decay:g}; rollout_steps cut from "
+        f"128 to {TF_ROLLOUT}, a depth cut): {iters} iterations, "
+        f"{timing['train_iteration']['mean_sec']:.4f} s per iteration "
+        f"({train_s / iters / TF_ROLLOUT * 1e3:.3f} ms per env step), {tr.carry.agent.step} "
+        f"updates ({learned} of {iters * TF_ROLLOUT} steps learn) in {train_s:.4f} s = "
+        f"{tr.carry.agent.step / train_s:.1f} updates/s; K1 launches {launches} == {iters} x "
+        f"{TF_ROLLOUT} + {launches - iters * TF_ROLLOUT} eval steps")
+    log("[12b] final eval rounds (" + f"{cfg.training.eval_episodes} episodes each): "
+        + ", ".join(f"{sec:.4f} s ({ran} steps before the early exit, K1 launches {k})"
+                    for k, ran, sec in evals)
+        + "; " + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items())
+                           if k.endswith(("success_rate", "reward_mean"))))
+    log(f"[12b] replay {tr.carry.buffer.capacity} rows x "
+        f"{sum(t[0].numel() for t in data.values())} float32 = {replay_mb:.1f} MB; device memory "
+        f"peak {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+
+    # the resume from the final checkpoint, bit for bit
+    final = scratch / "transformer" / "checkpoints"
+    resumed = Trainer(cfg, output_dir=scratch / "transformer_resumed", resume=final, device=dev)
+    saved = {"carry": tr.carry, "generator": tr.generator}
+    diffs = diff_states(saved, {"carry": resumed.carry, "generator": resumed.generator})
+    assert not diffs, diffs[:10]
+    log(f"[12b] resume from {final.name}/{tr.env_steps}: carry (transformer actor, EMA actor, "
+        f"Adam states) and both generators equal the saved ones bit for bit "
+        f"({len(flat_state(saved))} leaves): ok")
+    resumed.logger.close()
+    del resumed
+
+    # learning steps under the profiler (device activity only)
+    prof_it = loop.make_train_iteration(
+        tr.sac_cfg, dataclasses.replace(tr.loop_cfg, rollout_steps=TF_PROFILE_STEPS))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.carry, _ = prof_it(tr.carry, tr.env_params)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TF_PROFILE_STEPS * 1e3
+    device_breakdown(prof, TF_PROFILE_STEPS, step_ms, "[12b]",
+                     f"profiled train iteration, {n} envs x {TF_PROFILE_STEPS} steps, {per} "
+                     f"updates per step", top=8)
+    del prof
+    gc.collect()
+    # one sac.update at the run's batch alone
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    batch = replay.sample(tr.carry.buffer, tr.sac_cfg.batch_size, generator=gen)
+    update_ms = device_ms(lambda: sac.update(tr.carry.agent, batch, tr.sac_cfg, generator=gen),
+                          reps=20, inner=1)
+    update_host_ms = host_us(lambda: sac.update(tr.carry.agent, batch, tr.sac_cfg, generator=gen),
+                             reps=5, inner=5) / 1e3
+    log(f"[12b] sac.update with the transformer actor at batch {tr.sac_cfg.batch_size}: device "
+        f"{update_ms:.4f} ms, host {update_host_ms:.4f} ms per call")
+    tr.logger.close()
+    del tr
+    gc.collect()
+    return launches
+
+
+def extension_draws(params: EnvParams, sac_cfg: sac.SACConfig, loop_cfg: loop.TrainLoopConfig,
+                    gen: torch.Generator) -> list:
+    """Every draw of one [12c] iteration on the CPU: each step's action
+    noise, IMU noise, autoreset and fresh goals' Gumbel draws, and the replay
+    rows and noise of each update once the gate opens."""
+    cpu, n, b = torch.device("cpu"), loop_cfg.num_envs, sac_cfg.batch_size
+    out = []
+    for t in range(loop_cfg.rollout_steps):
+        size = (t + 1) * n
+        out.append(IterDraws(
+            step=StepDraws(n_act=torch.randn((n, 2), generator=gen),
+                           n_imu=torch.randn((n, 7), generator=gen),
+                           reset=rocket_env.draw_reset(params, n, cpu, gen),
+                           g_goal=hier_mod.gumbel((n, loop_cfg.hierarchical.num_goals), cpu, gen)),
+            samples=[SampleDraws(idx=torch.randint(0, size, (b,), generator=gen),
+                                 update=sac.UpdateDraws(n_next=torch.randn((b, 2), generator=gen),
+                                                        n_pi=torch.randn((b, 2), generator=gen)))
+                     ] if size >= sac_cfg.learning_starts else []))
+    return out
+
+
+def extensions_card_vs_cpu(dev) -> None:
+    """[12c]: one train iteration with ICM, the physics-informed loss, RND
+    and hierarchical RL on, 256 envs x 8 steps of 8-step episodes at the
+    default widths, card (K1) against CPU (plain) from the same initial state
+    and goals on the same draws: the goals equal, the ICM, RND, high-level
+    and SAC parameters within 1e-4, the env at its bars."""
+    cfg = load_config(default_config_path(), EXTENSIONS_ON + [
+        f"exploration.random_network_distillation.update_frequency={EXT_RND_EVERY}"])
+    sac_cfg = dataclasses.replace(build_sac_config(cfg), buffer_size=32 * EXT_N,
+                                  learning_starts=2 * EXT_N)
+    loop_cfg = dataclasses.replace(build_loop_config(cfg), num_envs=EXT_N, rollout_steps=EXT_STEPS)
+    base = build_env_params(cfg, cfg.curriculum.stages[0])
+    params = dataclasses.replace(base, max_episode_steps=8)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 60)
+    reset0 = rocket_env.draw_reset(params, EXT_N, cpu, gen)
+    g0 = hier_mod.gumbel((EXT_N, loop_cfg.hierarchical.num_goals), cpu, gen)
+    draws = extension_draws(params, sac_cfg, loop_cfg, gen)
+    out, goal0 = [], None
+    for where in (cpu, dev):
+        carry = loop.init_carry(params, sac_cfg, loop_cfg, device=where, seed=SEED,
+                                reset_draws=to_device(reset0, where))
+        if goal0 is None:   # the first goals, chosen on the CPU for both
+            goal0 = hier_mod.sample_goal(carry.hier, carry.goal_obs, loop_cfg.hierarchical, g0)
+        carry.goal = goal0.to(where)
+        k1.step_kernel.launches = 0
+        it = loop.make_train_iteration(sac_cfg, loop_cfg)
+        out.append((*it(carry, params, to_device(draws, where)), k1.step_kernel.launches))
+    torch.cuda.synchronize()
+    (b, bm, b_launches), (a, am, a_launches) = out
+    # K1 once per step on the card, never on the CPU
+    assert (a_launches, b_launches) == (EXT_STEPS if dev.type == "cuda" else 0, 0), (
+        a_launches, b_launches)
+    torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
+    for k in ("obs", "next_obs", "action"):
+        torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+    torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"], **REWARD)
+    assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated differs"
+    for name in ("episodes", "successes", "ep_length", "ep_ring_seq", "ep_ring_ptr", "goal",
+                 "ep_ring_goal"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
+    torch.testing.assert_close(a.goal_obs.cpu(), b.goal_obs, **OBS)
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    errs = {
+        "sac": max(net_param_err(getattr(a.agent, net), getattr(b.agent, net), net)
+                   for net in ("actor", "critic", "target_critic")),
+        "icm": net_param_err(a.icm.nets, b.icm.nets, "icm"),
+        "rnd": net_param_err(a.rnd.predictor, b.rnd.predictor, "rnd"),
+        "high": net_param_err(a.hier.policy, b.hier.policy, "high"),
+    }
+    for name in ("bonus_mean", "bonus_var"):
+        torch.testing.assert_close(getattr(a.rnd, name).cpu(), getattr(b.rnd, name), **PARAMS,
+                                   msg=name)
+    torch.testing.assert_close(a.hier.baseline.cpu(), b.hier.baseline, **REWARD)
+    steps = (a.agent.step, a.icm.step, a.rnd.step, int(a.hier.step), int(a.hier.opt.count))
+    assert steps == (b.agent.step, b.icm.step, b.rnd.step, int(b.hier.step),
+                     int(b.hier.opt.count)), steps
+    assert a.agent.step > 0 and a.icm.step == EXT_STEPS and a.rnd.step == 3, steps
+    assert int(a.hier.step) == 1 and int(b.episodes.sum()) >= EXT_N, (steps, int(b.episodes.sum()))
+    log(f"[12c] train iteration with ICM + physics-informed loss + RND (every {EXT_RND_EVERY} "
+        f"steps) + hierarchical RL, default widths, {EXT_N} envs x {EXT_STEPS} steps, card (K1) "
+        f"vs CPU (plain): max |d obs| {float((a.obs.cpu() - b.obs).abs().max()):.3e}, max |d "
+        f"replay reward| "
+        f"{float((a.buffer.data['reward'].cpu() - b.buffer.data['reward']).abs().max()):.3e}; "
+        f"goals and goal ring equal ({int(b.episodes.sum())} episode ends, goals "
+        f"{torch.bincount(b.goal.long(), minlength=4).tolist()}); max |d param| SAC "
+        f"{errs['sac']:.3e}, ICM {errs['icm']:.3e}, RND {errs['rnd']:.3e}, high level "
+        f"{errs['high']:.3e} (atol {PARAMS['atol']}); SAC/ICM/RND/high updates {steps[:4]}; "
+        f"K1 launches {a_launches}: ok")
+
+
+def run_extension_trainer(scratch: Path, dev) -> int:
+    """[12c]: ``Trainer`` at the default config (4096 envs) with the four
+    extensions on, one 32-step iteration, its hierarchical final eval and the
+    resume from its final checkpoint bit for bit; then the env step's cost
+    with the extensions on against off, in turns. Returns the trainer's K1
+    launches."""
+    cfg = load_config(default_config_path(), EXTENSIONS_ON
+                      + [f"training.rollout_steps={EXT_ROLLOUT}"])
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = n * EXT_ROLLOUT
+    tr = Trainer(cfg, output_dir=scratch / "extensions", device=dev)
+    agents: list = []
+    inner = tr._eval_fn
+
+    def recording(agent, generator, params, draws=None):
+        agents.append(agent)
+        return inner(agent, generator, params, draws)
+
+    tr._eval_fn = recording
+    evals: list = []
+    counting_evals(tr, evals)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches = k1.step_kernel.launches
+    timing = result["stage_timing"]
+    c = tr.carry
+    assert result["iterations"] == 1 and result["env_steps"] == n * EXT_ROLLOUT, result
+    assert launches == EXT_ROLLOUT + sum(k for k, _, _ in evals), (launches, evals)
+    assert agents and all(isinstance(x, tuple) and x[1] is c.hier for x in agents)
+    assert c.icm.step == EXT_ROLLOUT and c.env_steps_host == EXT_ROLLOUT
+    every = tr.loop_cfg.rnd.update_frequency
+    assert c.rnd.step == len(range(0, EXT_ROLLOUT, every)), c.rnd.step
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    goals = torch.bincount(c.goal.long(), minlength=tr.loop_cfg.hierarchical.num_goals).tolist()
+    log(f"[12c] Trainer, default config with ICM + physics-informed + RND + hierarchical "
+        f"({n} envs, rollout_steps cut from 128 to {EXT_ROLLOUT}, a depth cut): 1 iteration "
+        f"{timing['train_iteration']['mean_sec']:.4f} s "
+        f"({timing['train_iteration']['mean_sec'] / EXT_ROLLOUT * 1e3:.3f} ms per env step), "
+        f"{c.agent.step} SAC / {c.icm.step} ICM / {c.rnd.step} RND / {int(c.hier.step)} "
+        f"high-level updates, high-level baseline {float(c.hier.baseline):.4g}, goals now "
+        f"{goals}; hierarchical final eval ({len(evals)} rounds): "
+        + ", ".join(f"{sec:.4f} s ({ran} steps)" for _, ran, sec in evals)
+        + f"; eval_success_rate {metrics['eval_success_rate']:.3f}; K1 launches {launches} "
+        f"== {EXT_ROLLOUT} + {launches - EXT_ROLLOUT} eval steps")
+    final = scratch / "extensions" / "checkpoints"
+    resumed = Trainer(cfg, output_dir=scratch / "extensions_resumed", resume=final, device=dev)
+    saved = {"carry": tr.carry, "generator": tr.generator}
+    diffs = diff_states(saved, {"carry": resumed.carry, "generator": resumed.generator})
+    assert not diffs, diffs[:10]
+    assert resumed.carry.env_steps_host == c.env_steps_host
+    log(f"[12c] resume from {final.name}/{tr.env_steps}: carry (ICM, RND, high level, goals, "
+        f"goal ring, env_steps_host) and both generators equal the saved ones bit for bit "
+        f"({len(flat_state(saved))} leaves): ok")
+    resumed.logger.close()
+    # one more iteration under set_sync_debug_mode("error"): the ICM, RND
+    # and goal branches and the high level's masked step make no
+    # host-device synchronisation
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        tr.carry, _ = tr._train_fn(tr.carry, tr.env_params)
+        sync_free_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tr.carry.env_steps_host == 2 * EXT_ROLLOUT, tr.carry.env_steps_host
+    log(f"[12c] under set_sync_debug_mode('error'): one more iteration with the four extensions "
+        f"enqueued in {sync_free_ms:.1f} ms with no host-device synchronisation (high-level "
+        f"steps {int(tr.carry.hier.step)}, Adam count {int(tr.carry.hier.opt.count)}): ok")
+    tr.logger.close()
+    params = tr.env_params
+    del tr, resumed, c, saved
+    gc.collect()
+
+    # the env step's extra cost: the loop with no SAC update (the gate
+    # closed) with the four extensions on against off, in turns
+    phase("[12c] extensions on/off")
+    on_loop = dataclasses.replace(build_loop_config(cfg), rollout_steps=EXT_COST_STEPS)
+    off_loop = dataclasses.replace(on_loop, use_curiosity=False, use_physics_informed=False,
+                                   use_rnd=False, use_hierarchical=False)
+    no_learn = dataclasses.replace(build_sac_config(cfg), buffer_size=4 * EXT_COST_STEPS * n,
+                                   learning_starts=10**12)
+    its = {name: loop.make_train_iteration(no_learn, lc)
+           for name, lc in (("on", on_loop), ("off", off_loop))}
+    carries = {name: loop.init_carry(params, no_learn, lc, device=dev, seed=SEED + 61)
+               for name, lc in (("on", on_loop), ("off", off_loop))}
+
+    def window(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carries[name], _ = its[name](carries[name], params)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / EXT_COST_STEPS * 1e3
+
+    window("on"), window("off")   # warm-up
+    host_ms = in_turns({"on": "on", "off": "off"}, window)
+    ops = {}
+    for name in ("on", "off"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window(name)
+            prof_ms = (time.perf_counter() - t0) / EXT_COST_STEPS * 1e3
+        ops[name] = device_breakdown(prof, EXT_COST_STEPS, prof_ms, "[12c]",
+                                     f"profiled env step (no SAC update), extensions {name}, "
+                                     f"{n} envs", top=0)
+        del prof
+    gc.collect()
+    log(f"[12c] env step at {n} envs without SAC updates, extensions on vs off, in turns (on off "
+        f"off on): host {host_ms['on'][0]:.4f}, {host_ms['on'][1]:.4f} vs {host_ms['off'][0]:.4f}, "
+        f"{host_ms['off'][1]:.4f} ms per step; device busy {ops['on']['busy']:.5f} vs "
+        f"{ops['off']['busy']:.5f} ms per step; device operations per step {ops['on']['ops']:.1f} "
+        f"vs {ops['off']['ops']:.1f} (RND updates every {on_loop.rnd.update_frequency} steps)")
+    del carries, its
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
@@ -1671,6 +2064,20 @@ def main() -> int:
         ensemble_launches["robust_card_vs_cpu"] = ROBUST_STEPS
         phase("[11b]")
         ensemble_launches["robust_r4d"] = run_robust_trainer(scratch, dev)
+
+        # ---- 12. the SAC learner's extensions: the transformer policy card
+        # vs CPU and transformer_r3.yaml at its widths; ICM, the
+        # physics-informed loss, RND and hierarchical RL card vs CPU and at
+        # the default config
+        phase("[12a]")
+        transformer_card_vs_cpu(dev)
+        phase("[12b]")
+        ensemble_launches["transformer_r3"] = run_transformer_trainer(scratch, dev)
+        phase("[12c]")
+        extensions_card_vs_cpu(dev)
+        ensemble_launches["extensions_card_vs_cpu"] = EXT_STEPS
+        phase("[12c] trainer")
+        ensemble_launches["extensions"] = run_extension_trainer(scratch, dev)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -28,6 +28,17 @@ def _jax_params(jcfg, stage=None):
     return env_params_from_numpy(jax.tree.map(np.asarray, j_build.build_env_params(jcfg, stage)))
 
 
+def assert_loop_configs_equal(port, ref) -> None:
+    """Every field of two ``TrainLoopConfig``s, the sub-configs (safety, ICM,
+    RND, physics-informed, hierarchical) field by field."""
+    for f in dataclasses.fields(port):
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(a):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
+        else:
+            assert a == b, f.name
+
+
 def assert_params_equal(port, ref) -> None:
     """Field by field: bools and ints exact, floats equal as float32."""
     a, b = dataclasses.asdict(port), dataclasses.asdict(ref)
@@ -165,21 +176,11 @@ def test_sac_and_loop_configs_as_in_jax(overrides):
     t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
     for f in dataclasses.fields(SACConfig):
         assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
-    t_loop, j_loop = t_build.build_loop_config(port), j_build.build_loop_config(ref)
-    for f in dataclasses.fields(t_loop):
-        if f.name == "safety":
-            assert dataclasses.asdict(t_loop.safety) == dataclasses.asdict(j_loop.safety)
-        else:
-            assert getattr(t_loop, f.name) == getattr(j_loop, f.name), f.name
+    assert_loop_configs_equal(t_build.build_loop_config(port), j_build.build_loop_config(ref))
 
 
 UNPORTED = {
     "bfloat16": ["algorithms.sac.compute_dtype=bfloat16"],
-    "transformer": ["network.architecture_type=transformer"],
-    "curiosity": ["exploration.curiosity.enabled=true"],
-    "rnd": ["exploration.random_network_distillation.enabled=true"],
-    "physics_informed": ["physics_informed.enabled=true"],
-    "hierarchical": ["hierarchical_rl.enabled=true"],
 }
 
 
@@ -190,6 +191,60 @@ def test_unported_options_fail_when_built(name):
         t_build.build_env_params(cfg)
         t_build.build_sac_config(cfg)
         t_build.build_loop_config(cfg)
+
+
+EXTENSIONS = {
+    "transformer": ["network.architecture_type=transformer", "network.transformer.d_model=64",
+                    "network.transformer.num_layers=3", "network.transformer.num_heads=4"],
+    "curiosity": ["exploration.curiosity.enabled=true", "exploration.curiosity.hidden_dim=64",
+                  "exploration.curiosity.lr=3e-4", "exploration.curiosity.reward_scale=0.02"],
+    "rnd": ["exploration.random_network_distillation.enabled=true",
+            "exploration.random_network_distillation.network_size=[64,32]",
+            "exploration.random_network_distillation.update_frequency=7"],
+    "physics_informed": ["physics_informed.enabled=true",
+                         "physics_informed.physics_loss_weight=0.3"],
+    "hierarchical": ["hierarchical_rl.enabled=true", "hierarchical_rl.num_goals=3",
+                     "hierarchical_rl.high_level_lr=2e-4"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXTENSIONS))
+def test_extension_options_build_as_in_jax(name):
+    """The options that raised until the port had their modules build the
+    reference's ``SACConfig`` and ``TrainLoopConfig``, the sub-configs field
+    by field."""
+    port = t_loader.load_config(None, EXTENSIONS[name])
+    ref = j_loader.load_config(None, EXTENSIONS[name])
+    t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
+    for f in dataclasses.fields(SACConfig):
+        assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
+    t_loop = t_build.build_loop_config(port)
+    assert_loop_configs_equal(t_loop, j_build.build_loop_config(ref))
+    on = {"transformer": t_sac.architecture == "transformer", "curiosity": t_loop.use_curiosity,
+          "rnd": t_loop.use_rnd, "physics_informed": t_loop.use_physics_informed,
+          "hierarchical": t_loop.use_hierarchical}
+    assert [k for k, v in on.items() if v] == [name]
+
+
+def test_transformer_r3_yaml_is_a_copy():
+    """Byte for byte the JAX package's file; the same tree; the env at every
+    curriculum stage, ``SACConfig`` and ``TrainLoopConfig`` as JAX builds them."""
+    port_path = ROOT / "tvc_ai_torch" / "config" / "transformer_r3.yaml"
+    ref_path = ROOT / "tvc_ai_tpu" / "config" / "transformer_r3.yaml"
+    assert port_path.read_bytes() == ref_path.read_bytes()
+    port, ref = t_loader.load_config(port_path), j_loader.load_config(ref_path)
+    assert port.to_dict() == ref.to_dict()
+    assert_params_equal(t_build.build_env_params(port), _jax_params(ref))
+    for t_stage, j_stage in zip(port.curriculum.stages, ref.curriculum.stages, strict=True):
+        assert_params_equal(t_build.build_env_params(port, t_stage), _jax_params(ref, j_stage))
+    t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
+    for f in dataclasses.fields(SACConfig):
+        assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
+    assert (t_sac.architecture, t_sac.transformer_d_model, t_sac.transformer_heads,
+            t_sac.transformer_layers, t_sac.batch_size) == ("transformer", 128, 8, 2, 1024)
+    t_loop = t_build.build_loop_config(port)
+    assert_loop_configs_equal(t_loop, j_build.build_loop_config(ref))
+    assert (t_loop.num_envs, t_loop.updates_per_step, t_loop.history_len) == (512, 16, 4)
 
 
 ENSEMBLE_YAMLS = ["ensemble_r3.yaml", "ensemble_r4.yaml"]
@@ -204,7 +259,7 @@ def test_ensemble_yaml_is_a_copy(name):
     assert t_loader.load_config(port).training.algorithm == "ensemble"
 
 
-@pytest.mark.parametrize("name", ["default.yaml", *ENSEMBLE_YAMLS])
+@pytest.mark.parametrize("name", ["default.yaml", *ENSEMBLE_YAMLS, "transformer_r3.yaml"])
 def test_build_ensemble_config_as_in_jax(name):
     """Every field of the ensemble config and of its three members."""
     from tvc_ai_torch.training.trainer_ensemble import build_ensemble_config as t_build_ens
@@ -264,9 +319,4 @@ def test_robust_yaml_copy_builds_as_in_jax(name):
     t_sac, j_sac = t_build.build_sac_config(port), j_build.build_sac_config(ref)
     for f in dataclasses.fields(SACConfig):
         assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
-    t_loop, j_loop = t_build.build_loop_config(port), j_build.build_loop_config(ref)
-    for f in dataclasses.fields(t_loop):
-        if f.name == "safety":
-            assert dataclasses.asdict(t_loop.safety) == dataclasses.asdict(j_loop.safety)
-        else:
-            assert getattr(t_loop, f.name) == getattr(j_loop, f.name), f.name
+    assert_loop_configs_equal(t_build.build_loop_config(port), j_build.build_loop_config(ref))

@@ -284,9 +284,26 @@ def test_run_all_suites_writes_outputs(tmp_path):
     assert (tmp_path / "evaluation_summary.json").exists()
 
 
-def test_hierarchical_eval_is_not_ported():
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        t_rollout.make_hier_eval_fn(t_sac.SACConfig(), None, 4)
+@pytest.mark.parametrize("history", [1, 2], ids=["history1", "history2"])
+def test_hierarchical_eval_matches_jax(history):
+    """``make_hier_eval_fn``: each step the high level's argmax goal from the
+    newest frame, the SAC actor on [obs ‖ goal one-hot]."""
+    from tvc_ai_torch.convert import high_level_state_from_numpy
+    from tvc_ai_torch.models import hierarchical as t_hier
+    from tvc_ai_tpu.models import hierarchical as j_hier
+
+    jp = jax_params(True)
+    j_agent, t_agent = agents(10 * history + 4, seed=history)
+    j_high = j_hier.init_high(jax.random.PRNGKey(20 + history), 10, j_hier.HierarchicalConfig())
+    t_high = high_level_state_from_numpy(np_tree(j_high), 10, t_hier.HierarchicalConfig(), "cpu")
+    key = jax.random.PRNGKey(EVAL_KEY)
+    ref = jax.jit(j_rollout.make_hier_eval_fn(j_sac.SACConfig(**SAC), j_hier.HierarchicalConfig(),
+                                              E, history_len=history))((j_agent, j_high), key, jp)
+    port = t_rollout.make_hier_eval_fn(t_sac.SACConfig(**SAC), t_hier.HierarchicalConfig(), E,
+                                       history_len=history)(
+        (t_agent, t_high), None, env_params_from_numpy(jp), replay_draws(key, jp, E))
+    assert_stats_close(port, ref)
+    assert int(port.lengths.min()) < HORIZON
 
 
 def test_load_agent_state(tmp_path):

@@ -22,6 +22,9 @@ from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams
 from tvc_ai_torch.eval.evaluate import run_all_suites, run_suite
 from tvc_ai_torch.evaluate import main as evaluate_main
+from tvc_ai_torch.models import curiosity as icm
+from tvc_ai_torch.models import hierarchical, rnd
+from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training import loop
 from tvc_ai_torch.training.trainer import Trainer
@@ -57,7 +60,24 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.utils.profiling", "tvc_ai_torch.train",
             "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
             "tvc_ai_torch.agents.ensemble",
-            "tvc_ai_torch.training.trainer_ensemble"} <= set(MODULES)
+            "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES} <= set(MODULES)
+
+
+# the transformer policy and the loop's extensions (ICM, physics-informed
+# loss, RND, hierarchical RL)
+EXTENSION_MODULES = ["tvc_ai_torch.agents.physics_informed", "tvc_ai_torch.models.curiosity",
+                     "tvc_ai_torch.models.hierarchical", "tvc_ai_torch.models.layers",
+                     "tvc_ai_torch.models.rnd", "tvc_ai_torch.models.transformer"]
+
+
+@pytest.mark.parametrize("name", EXTENSION_MODULES)
+def test_extension_module_imports_no_jax(name):
+    tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
+    roots = {alias.name.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for alias in node.names}
+    roots |= {node.module.split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "tvc_ai_tpu"}, (name, roots)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -109,7 +129,7 @@ def _numpy_sac_state(cfg: sac.SACConfig) -> dict:
 ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_create",
                 "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites",
                 "td3_init", "ppo_init", "ensemble_init_carry", "ensemble_agent",
-                "ensemble_trainer"]
+                "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init"]
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
 TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
         "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
@@ -150,6 +170,10 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "ensemble_trainer": lambda: EnsembleTrainer(
             load_config(None, [*TINY, "training.algorithm=ensemble"]),
             output_dir=tmp_path / "ens").carry.obs,
+        "transformer_actor": lambda: next(TransformerActor(10, 2, 16, 2, 1).parameters()),
+        "icm_init": lambda: next(icm.init(icm.CuriosityConfig(hidden_dim=8)).nets.parameters()),
+        "rnd_init": lambda: rnd.init(rnd.RNDConfig(hidden_dims=(8,), embed_dim=4)).bonus_var,
+        "high_init": lambda: hierarchical.init_high(10, hierarchical.HierarchicalConfig()).step,
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"
@@ -261,7 +285,7 @@ def test_port_reads_no_yaml_of_the_jax_package():
         "    build.build_loop_config(cfg)\n"
         "loader.load_config(None)\n"
         "assert opened and all(p.startswith(str(root)) for p in opened), opened\n"
-        "assert len(names) == 14, names\n"
+        "assert len(names) == 15, names\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -317,6 +341,40 @@ def test_robust_option_paths_reach_physics_only_through_k1(monkeypatch):
     ppo.make_train_iteration(cfg.ppo, 4, 3, 10, 2)(
         ppo.init(10, 2, cfg.ppo, device="cpu"), states, obs, gen, params)
     assert calls == ["cpu"] * (3 + 3 + 3 + 3)
+
+
+def test_extension_paths_reach_physics_only_through_k1(monkeypatch):
+    """With ICM, the physics-informed loss, RND and hierarchical RL on (a
+    transformer actor on a history window), the SAC iteration and the
+    hierarchical evaluation integrate through K1's wrapper only."""
+    from tvc_ai_torch.env.types import RandomizationConfig
+    from tvc_ai_torch.eval.rollout import make_hier_eval_fn
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("an extension path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    params = EnvParams(randomization=RandomizationConfig(enabled=True, sensor_noise_enabled=True),
+                       max_episode_steps=3)
+    small = sac.SACConfig((8, 8), batch_size=8, buffer_size=64, learning_starts=8,
+                          architecture="transformer", transformer_d_model=16,
+                          transformer_heads=2, transformer_layers=1)
+    loop_cfg = loop.TrainLoopConfig(num_envs=4, rollout_steps=3, history_len=2,
+                                    use_curiosity=True, use_physics_informed=True,
+                                    use_rnd=True, use_hierarchical=True)
+    carry = loop.init_carry(params, small, loop_cfg, device="cpu", seed=1)
+    carry, _ = loop.make_train_iteration(small, loop_cfg)(carry, params)
+    make_hier_eval_fn(small, loop_cfg.hierarchical, 3, history_len=2, check_every=10**9)(
+        (carry.agent, carry.hier), torch.Generator().manual_seed(0), params)
+    assert calls == ["cpu"] * (3 + 3)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -19,7 +19,9 @@ consumes, so both packages can be fed the same numbers:
   ``key`` into (k_reset, k_carry) and resets from k_reset;
 - train iteration (``training/loop.py``): each step splits the carry's key
   into (k_act, k_sample, k_update, k_next); the action noise is
-  normal(k_act, (N, A)); each update splits its key, starting from
+  normal(k_act, (N, A)); in hierarchical mode the fresh goals are
+  categorical(fold_in(k_act, 17), logits), i.e. the argmax of the logits plus
+  gumbel(fold_in(k_act, 17), (N, num_goals)); each update splits its key, starting from
   k_update, into (k_s, k_d, k_u, key); the replay rows are
   randint(k_s, (B - n_demo,), 0, max(size, 1)), the demo rows
   randint(k_d, (n_demo,), 0, max(demo size, 1)); ``sac.update`` splits k_u
@@ -171,6 +173,10 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
         k_act, _, k_update, key = jax.random.split(key, 4)
         step = dataclasses.replace(chain.step(env_keys[t]),
                                    n_act=to_torch(jax.random.normal(k_act, (n, a))))
+        if loop_cfg.use_hierarchical:
+            # the fresh goals: categorical(fold_in(k_act, 17), logits)
+            step.g_goal = to_torch(jax.random.gumbel(
+                jax.random.fold_in(k_act, 17), (n, loop_cfg.hierarchical.num_goals)))
         samples = []
         if t % every == every - 1 and sizes[t] >= sac_cfg.learning_starts:
             k = k_update

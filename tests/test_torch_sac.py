@@ -264,8 +264,6 @@ def test_update_draws_from_generator_and_views():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        t_sac.SACConfig(architecture="transformer")
-    with pytest.raises(NotImplementedError):
         t_sac.SACConfig(compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="lr_schedule"):
         t_sac.SACConfig(lr_schedule="step")

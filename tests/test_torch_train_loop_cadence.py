@@ -1,0 +1,50 @@
+"""The fused train iteration's extensions under another cadence and window,
+against the JAX package (CPU): the ICM with ``update_interval`` 2 (it trains
+in the sim-only steps too) and ICM + RND with ``history_len`` 4 (both read
+the newest frame of the window). The checks of
+``test_torch_train_loop_extensions.py`` (its docstring gives the method and
+the bars).
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from test_torch_train_loop_extensions import (
+    check_convert,
+    check_counters_ring_and_goals_match,
+    check_env_state_and_obs_match,
+    check_extension_states_match,
+    check_replay_rows_match,
+    check_sac_params_and_metrics_match,
+    run_case,
+)
+
+
+@pytest.fixture(scope="module", params=["icm_interval2", "icm_rnd_history4"])
+def run(request):
+    return run_case(request.param)
+
+
+def test_convert_carries_extension_fields(run):
+    check_convert(run)
+
+
+def test_iteration_env_state_and_obs_match(run):
+    check_env_state_and_obs_match(run)
+
+
+def test_iteration_replay_rows_match(run):
+    check_replay_rows_match(run)
+
+
+def test_iteration_counters_ring_and_goals_match(run):
+    check_counters_ring_and_goals_match(run)
+
+
+def test_iteration_sac_params_and_metrics_match(run):
+    check_sac_params_and_metrics_match(run)
+
+
+def test_iteration_extension_states_match(run):
+    check_extension_states_match(run)

@@ -36,15 +36,17 @@ import torch
 from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models import distributions as dist
 from tvc_ai_torch.models.mlp import GaussianActor, TwinQ
+from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class SACConfig:
     """The reference's ``SACConfig``, field for field, less ``action_noise``
-    and ``curriculum_learning``, which the reference never reads. Not ported,
-    raising ``NotImplementedError``: ``compute_dtype="bfloat16"`` and
-    ``architecture="transformer"``."""
+    and ``curriculum_learning``, which the reference never reads.
+    ``architecture="transformer"`` gives the actor a ``TransformerActor``
+    (any other value the MLP, as in the reference). Not ported, raising
+    ``NotImplementedError``: ``compute_dtype="bfloat16"``."""
 
     hidden_dims: tuple[int, ...] = (256, 256)
     lr_actor: float = 3e-4
@@ -82,11 +84,6 @@ class SACConfig:
             raise NotImplementedError(
                 f"SACConfig.compute_dtype={self.compute_dtype!r} is not ported"
             )
-        if self.architecture != "mlp":
-            raise NotImplementedError(
-                f"SACConfig.architecture={self.architecture!r} is not ported "
-                "(the transformer policy waits for its own slice)"
-            )
         if self.lr_schedule not in optim.SCHEDULES:
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
 
@@ -102,7 +99,7 @@ class SACConfig:
 class SACState:
     """All learnable state; ``update`` changes it in place."""
 
-    actor: GaussianActor
+    actor: GaussianActor | TransformerActor
     critic: TwinQ
     target_critic: TwinQ
     log_alpha: torch.Tensor          # () float32
@@ -110,7 +107,7 @@ class SACState:
     critic_opt: optim.AdamState
     alpha_opt: optim.AdamState
     step: int                        # updates taken
-    ema_actor: GaussianActor | None = None   # read through eval_actor_view
+    ema_actor: GaussianActor | TransformerActor | None = None  # read through eval_actor_view
 
 
 @dataclasses.dataclass
@@ -141,7 +138,15 @@ def make_actor(
     cfg: SACConfig,
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
-) -> GaussianActor:
+) -> GaussianActor | TransformerActor:
+    """The actor ``cfg.architecture`` names. The transformer takes only
+    ``d_model``, ``num_layers`` and ``num_heads`` from the config, as the
+    reference's ``make_networks`` does: its feed-forward width (512) and
+    head widths (512, 512) are ``TransformerActor``'s defaults."""
+    if cfg.architecture == "transformer":
+        return TransformerActor(obs_dim, action_dim, d_model=cfg.transformer_d_model,
+                                num_heads=cfg.transformer_heads,
+                                num_layers=cfg.transformer_layers, device=device, seed=seed)
     return GaussianActor(obs_dim, action_dim, cfg.hidden_dims, device=device, seed=seed)
 
 
@@ -186,7 +191,7 @@ def eval_actor_view(state: SACState, cfg: SACConfig) -> SACState:
 
 @torch.no_grad()
 def select_action(
-    actor: GaussianActor,
+    actor: GaussianActor | TransformerActor,
     obs: torch.Tensor,
     n_act: torch.Tensor | None = None,
     deterministic: bool = False,
@@ -268,7 +273,11 @@ def update(
         per = torch.mean((torch.tanh(mean) - action) ** 2, dim=-1)
         bc_loss = torch.sum(gate * per) / torch.clamp(torch.sum(gate), min=1.0)
         actor_loss = actor_loss + cfg.bc_weight * q_scale * bc_loss
-    actor_grads = torch.autograd.grad(actor_loss, actor_params)
+    # the transformer's value head and, over its one-token input, its query
+    # and key projections take no part in the loss: zero gradients, as in
+    # the reference, so that clipping and Adam see the whole tree
+    actor_grads = torch.autograd.grad(actor_loss, actor_params, allow_unused=True,
+                                      materialize_grads=True)
     with torch.no_grad():
         _clipped_adam(actor_params, actor_grads, state.actor_opt, cfg.lr_actor, cfg)
 

@@ -9,15 +9,15 @@ reference keeps as a Python float). ``build_sac_config`` and
 ``training.loop.TrainLoopConfig``.
 
 An option the port cannot honour raises ``NotImplementedError`` here, when
-the config is built, never later and never silently: bfloat16 and the
-transformer policy (``SACConfig``), and ICM, RND, physics-informed and
-hierarchical training.
+the config is built, never later and never silently: bfloat16
+(``SACConfig``).
 """
 
 from __future__ import annotations
 
 import math
 
+from tvc_ai_torch.agents.physics_informed import PhysicsInformedConfig
 from tvc_ai_torch.agents.sac import SACConfig
 from tvc_ai_torch.config.schema import CurriculumStage, FrameworkConfig
 from tvc_ai_torch.env.types import (
@@ -32,6 +32,9 @@ from tvc_ai_torch.env.types import (
     TerminationConfig,
     as_float32,
 )
+from tvc_ai_torch.models.curiosity import CuriosityConfig
+from tvc_ai_torch.models.hierarchical import HierarchicalConfig
+from tvc_ai_torch.models.rnd import RNDConfig
 from tvc_ai_torch.models.safety import SafetyConstraints
 from tvc_ai_torch.physics.types import RocketParams
 from tvc_ai_torch.training.loop import TrainLoopConfig
@@ -202,30 +205,15 @@ def build_sac_config(cfg: FrameworkConfig) -> SACConfig:
     )
 
 
-# extensions of the fused loop the port does not have yet, and where they wait
-_UNPORTED_EXTENSIONS = (
-    ("exploration.curiosity.enabled", "models/curiosity.py (ROADMAP module 10)"),
-    ("exploration.random_network_distillation.enabled", "models/rnd.py (ROADMAP module 10)"),
-    ("physics_informed.enabled", "agents/physics_informed.py (ROADMAP module 10)"),
-    ("hierarchical_rl.enabled", "models/hierarchical.py (ROADMAP module 10)"),
-)
-
-
-def _lookup(cfg: FrameworkConfig, dotted: str):
-    node = cfg
-    for part in dotted.split("."):
-        node = getattr(node, part)
-    return node
-
-
 def build_loop_config(cfg: FrameworkConfig) -> TrainLoopConfig:
     """Fused-loop config: the shape and cadence, the history window, the
-    demo fraction and the safety layer. ICM, RND, physics-informed and
-    hierarchical training raise ``NotImplementedError``."""
-    for dotted, module in _UNPORTED_EXTENSIONS:
-        if _lookup(cfg, dotted):
-            raise NotImplementedError(f"{dotted} is not ported; it waits for {module}")
+    demo fraction, the safety layer and the extension stack (ICM with the
+    physics-informed loss, RND, hierarchical RL)."""
     t = cfg.training
+    h = cfg.hierarchical_rl
+    icm = cfg.exploration.curiosity
+    rnd = cfg.exploration.random_network_distillation
+    pi = cfg.physics_informed
     sc = cfg.safety.constraints
     return TrainLoopConfig(
         num_envs=t.num_envs,
@@ -249,5 +237,26 @@ def build_loop_config(cfg: FrameworkConfig) -> TrainLoopConfig:
             max_altitude=sc.max_altitude,
             max_control_effort=sc.max_control_effort,
             fuel_reserve=sc.fuel_reserve,
+        ),
+        use_curiosity=icm.enabled,
+        curiosity=CuriosityConfig(
+            hidden_dim=icm.hidden_dim,
+            lr=icm.lr,
+            reward_scale=icm.reward_scale,
+        ),
+        use_rnd=rnd.enabled,
+        rnd=RNDConfig(
+            hidden_dims=tuple(rnd.network_size),
+            lr=rnd.lr,
+            reward_scale=rnd.reward_scale,
+            update_frequency=rnd.update_frequency,
+        ),
+        use_physics_informed=pi.enabled,
+        physics_informed=PhysicsInformedConfig(physics_weight=pi.physics_loss_weight),
+        use_hierarchical=h.enabled,
+        hierarchical=HierarchicalConfig(
+            num_goals=h.num_goals,
+            high_level_lr=h.high_level_lr,
+            low_level_lr=h.low_level_lr,
         ),
     )

@@ -1,5 +1,6 @@
 """Carry weights, optimizer, replay, env and loop state across from the JAX package
-(the SAC loop's carry, and the ensemble's with its TD3 and PPO members).
+(the SAC loop's carry with its ICM, RND and high-level state, and the
+ensemble's with its TD3 and PPO members).
 
 The inputs are plain host data: nested dicts, tuples (or attribute objects)
 whose leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing
@@ -27,6 +28,9 @@ from tvc_ai_torch.env.types import (
     SuccessConfig,
     TerminationConfig,
 )
+from tvc_ai_torch.models import curiosity as icm_mod
+from tvc_ai_torch.models import hierarchical as hier_mod
+from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.training.loop import TrainCarry, TrainLoopConfig, policy_obs_dim
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
@@ -36,26 +40,43 @@ def _get(obj: Any, name: str) -> Any:
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
+def _f32(x: Any) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
 def _dense_layers(params: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
-    """State dict of the flax ``Dense`` layers in ``params`` (nested modules
-    joined with "."). Accepts the variables dict (``{"params": {...}}``) or
-    its inner dict. A flax kernel is (in, out); ``nn.Linear.weight`` is
-    (out, in)."""
+    """State dict of the flax layers in ``params`` (nested modules joined
+    with "."), by the flax names. Accepts the variables dict (``{"params":
+    {...}}``) or its inner dict.
+
+    - ``Dense``: kernel (in, out) → ``nn.Linear.weight`` (out, in);
+    - ``DenseGeneral`` of attention: a q/k/v kernel (in, heads, head_dim)
+      with bias (heads, head_dim), or an out kernel (heads, head_dim, out),
+      each → the ``nn.Linear`` over the flattened heads;
+    - ``LayerNorm``: scale → ``weight``, bias → ``bias``.
+    """
     if "params" in params:
         params = params["params"]
     state = {}
     for name, sub in params.items():
         if "kernel" in sub:
-            kernel = np.asarray(sub["kernel"], dtype=np.float32)
-            state[f"{prefix}{name}.weight"] = torch.tensor(kernel.T)
-            state[f"{prefix}{name}.bias"] = torch.tensor(np.asarray(sub["bias"], dtype=np.float32))
+            kernel, bias = _f32(sub["kernel"]), _f32(sub["bias"])
+            if kernel.ndim == 3 and bias.ndim == 2:    # (in, heads, head_dim)
+                kernel = kernel.reshape(kernel.shape[0], -1)
+            elif kernel.ndim == 3:                     # (heads, head_dim, out)
+                kernel = kernel.reshape(-1, kernel.shape[-1])
+            state[f"{prefix}{name}.weight"] = torch.tensor(np.ascontiguousarray(kernel.T))
+            state[f"{prefix}{name}.bias"] = torch.tensor(bias.reshape(-1))
+        elif "scale" in sub:
+            state[f"{prefix}{name}.weight"] = torch.tensor(_f32(sub["scale"]))
+            state[f"{prefix}{name}.bias"] = torch.tensor(_f32(sub["bias"]))
         else:
             state.update(_dense_layers(sub, f"{prefix}{name}."))
     return state
 
 
 def actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """``GaussianActor`` state dict from flax actor params."""
+    """``GaussianActor`` or ``TransformerActor`` state dict from flax actor params."""
     return _dense_layers(params)
 
 
@@ -164,10 +185,11 @@ def _find_adam(opt_state: Any) -> Any:
 
 
 def _adam_state(opt_state: Any, module: torch.nn.Module | tuple[torch.nn.Module, ...],
-                device: torch.device) -> optim.AdamState:
+                device: torch.device, device_count: bool = False) -> optim.AdamState:
     """The Adam state of one module's parameters, or of a tuple of modules'
     whose optimizer holds a tuple of trees (PPO's (actor, value)), in the
-    modules' parameter order."""
+    modules' parameter order. ``device_count`` keeps the count as a 0-dim
+    int32 device tensor (the high level's) instead of a host int."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
@@ -180,7 +202,10 @@ def _adam_state(opt_state: Any, module: torch.nn.Module | tuple[torch.nn.Module,
         for mod, sub in zip(modules, trees, strict=True):
             state = _dense_layers(sub)
             moments[-1] += [state[name].to(device) for name, _ in mod.named_parameters()]
-    return optim.AdamState(mu=moments[0], nu=moments[1], count=int(np.asarray(_get(adam, "count"))))
+    count = int(np.asarray(_get(adam, "count")))
+    if device_count:
+        count = torch.tensor(count, dtype=torch.int32, device=device)
+    return optim.AdamState(mu=moments[0], nu=moments[1], count=count)
 
 
 def _scalar_adam_state(opt_state: Any, device: torch.device) -> optim.AdamState:
@@ -232,6 +257,46 @@ def replay_from_numpy(buffer: Any, device: str | torch.device = DEFAULT_DEVICE) 
     )
 
 
+def curiosity_state_from_numpy(state: Any, cfg: icm_mod.CuriosityConfig,
+                               device: str | torch.device = DEFAULT_DEVICE
+                               ) -> icm_mod.CuriosityState:
+    """``CuriosityState`` from a JAX ``CuriosityState`` mapped to numpy."""
+    dev = resolve_device(device)
+    out = icm_mod.init(cfg, dev)
+    out.nets.load_state_dict(_dense_layers(_get(state, "params")))
+    out.opt = _adam_state(_get(state, "opt_state"), out.nets, dev)
+    out.step = int(np.asarray(_get(state, "step")))
+    return out
+
+
+def rnd_state_from_numpy(state: Any, cfg: rnd_mod.RNDConfig,
+                         device: str | torch.device = DEFAULT_DEVICE) -> rnd_mod.RNDState:
+    """``RNDState`` from a JAX ``RNDState`` mapped to numpy."""
+    dev = resolve_device(device)
+    out = rnd_mod.init(cfg, dev)
+    out.target.load_state_dict(_dense_layers(_get(state, "target_params")))
+    out.predictor.load_state_dict(_dense_layers(_get(state, "predictor_params")))
+    out.opt = _adam_state(_get(state, "opt_state"), out.predictor, dev)
+    out.step = int(np.asarray(_get(state, "step")))
+    out.bonus_mean = _tensor(_get(state, "bonus_mean"), dev)
+    out.bonus_var = _tensor(_get(state, "bonus_var"), dev)
+    return out
+
+
+def high_level_state_from_numpy(state: Any, obs_dim: int, cfg: hier_mod.HierarchicalConfig,
+                                device: str | torch.device = DEFAULT_DEVICE
+                                ) -> hier_mod.HighLevelState:
+    """``HighLevelState`` from a JAX ``HighLevelState`` mapped to numpy; the
+    Adam count and ``step`` stay device tensors."""
+    dev = resolve_device(device)
+    out = hier_mod.init_high(obs_dim, cfg, dev)
+    out.policy.load_state_dict(_dense_layers(_get(state, "params")))
+    out.opt = _adam_state(_get(state, "opt_state"), out.policy, dev, device_count=True)
+    out.baseline = _tensor(_get(state, "baseline"), dev)
+    out.step = _tensor(_get(state, "step"), dev)
+    return out
+
+
 def train_carry_from_numpy(
     carry: Any,
     sac_cfg: sac.SACConfig,
@@ -239,18 +304,20 @@ def train_carry_from_numpy(
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
 ) -> TrainCarry:
-    """``TrainCarry`` from a JAX ``TrainCarry`` mapped to numpy. The key
-    becomes a generator seeded with ``seed``; a carry with ICM, RND or
-    hierarchical state raises (not ported)."""
+    """``TrainCarry`` from a JAX ``TrainCarry`` mapped to numpy, with the
+    ICM, RND and high-level states and the goal fields when present. The key
+    becomes a generator seeded with ``seed``; ``env_steps_host`` is
+    ``env_steps[0]``."""
     dev = resolve_device(device)
-    for name in ("icm", "rnd", "hier"):
-        if _get(carry, name) is not None:
-            raise NotImplementedError(f"TrainCarry.{name} is not ported")
     window = _get(carry, "obs_window")
     demo = _get(carry, "demo_buffer")
     counters = ("env_steps", "episodes", "successes", "ep_return", "ep_length", "return_sum",
                 "length_sum", "ep_ring_return", "ep_ring_length", "ep_ring_success",
                 "ep_ring_seq", "ep_ring_ptr")
+    icm, rnd, hier = (_get(carry, name) for name in ("icm", "rnd", "hier"))
+    optional = {name: None if _get(carry, name) is None else _tensor(_get(carry, name), dev)
+                for name in ("goal", "goal_obs", "ep_ring_goal", "ep_ring_goal_obs")}
+    env_steps = np.asarray(_get(carry, "env_steps"))
     return TrainCarry(
         env_states=env_state_from_numpy(_get(carry, "env_states"), dev),
         obs=_tensor(_get(carry, "obs"), dev),
@@ -260,6 +327,12 @@ def train_carry_from_numpy(
         generator=torch.Generator(device=dev).manual_seed(seed),
         obs_window=None if window is None else _tensor(window, dev),
         demo_buffer=None if demo is None else replay_from_numpy(demo, dev),
+        icm=None if icm is None else curiosity_state_from_numpy(icm, loop_cfg.curiosity, dev),
+        rnd=None if rnd is None else rnd_state_from_numpy(rnd, loop_cfg.rnd, dev),
+        hier=None if hier is None else high_level_state_from_numpy(
+            hier, loop_cfg.obs_dim, loop_cfg.hierarchical, dev),
+        env_steps_host=int(env_steps.reshape(-1)[0]) if env_steps.size else 0,
+        **optional,
         **{name: _tensor(_get(carry, name), dev) for name in counters},
     )
 

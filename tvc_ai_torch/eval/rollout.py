@@ -29,6 +29,7 @@ from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.rocket_env import ResetDraws
 from tvc_ai_torch.env.types import EnvParams, EnvState
+from tvc_ai_torch.models import hierarchical as hier_mod
 from tvc_ai_torch.utils.tree import tree_map
 
 CHECK_EVERY = 32  # steps between the early-exit reads of done.all()
@@ -203,10 +204,28 @@ def make_eval_fn(
                                history_len=history_len, check_every=check_every)
 
 
-def make_hier_eval_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "hierarchical evaluation waits for models/hierarchical.py (ROADMAP module 10)"
-    )
+def make_hier_eval_fn(
+    sac_cfg: sac_mod.SACConfig,
+    hier_cfg: hier_mod.HierarchicalConfig,
+    num_episodes: int,
+    action_dim: int = 2,
+    history_len: int = 1,
+    check_every: int = CHECK_EVERY,
+):
+    """Hierarchical evaluation: each step the high level picks its argmax
+    goal from the newest frame, and the goal-conditioned SAC actor acts on
+    [obs ‖ goal one-hot]. ``agent`` is ``(sac_state, high_state)``."""
+
+    def policy_fn(agent, obs: torch.Tensor) -> torch.Tensor:
+        sac_state, high_state = agent
+        # newest frame of the flattened window (frame size inferred: 10 or 14)
+        frame = obs.reshape(obs.shape[0], history_len, -1)[:, -1, :] if history_len > 1 else obs
+        goal = hier_mod.sample_goal(high_state, frame, hier_cfg, deterministic=True)
+        view = torch.cat([obs, hier_mod.one_hot(goal, hier_cfg.num_goals, obs.dtype)], dim=-1)
+        return sac_mod.select_action(sac_state.actor, view, deterministic=True)
+
+    return make_policy_eval_fn(policy_fn, num_episodes, history_len=history_len,
+                               check_every=check_every)
 
 
 def make_trajectory_fn(

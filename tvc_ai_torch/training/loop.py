@@ -20,8 +20,27 @@ duplicate slots, and XLA applies them in order, so the last writer wins. The
 port writes only the last ``episode_ring_size`` finishers of the step (their
 slots are distinct), which gives the same ring deterministically.
 
-Not ported, raising ``NotImplementedError``: ``use_curiosity``, ``use_rnd``,
-``use_physics_informed``, ``use_hierarchical``, ``hoist_bookkeeping=True``,
+The extensions, each in the reference's place in the step:
+
+- ``use_curiosity``: the ICM's intrinsic reward on the newest frame, the
+  action and the true next observation, from the parameters before the
+  step's own ICM update, which follows over all N rows (with
+  ``use_physics_informed``, regularized by the physics-informed loss);
+- ``use_rnd``: the RND bonus on the true next observation; the predictor
+  updates when the env-step count before the step is a multiple of
+  ``rnd.update_frequency``, decided on the host from
+  ``TrainCarry.env_steps_host``;
+- ``use_hierarchical``: the SAC actor sees [obs ‖ goal one-hot] and the
+  replay stores that view on both sides of a transition; a finished
+  episode logs its goal and the frame it was chosen on into the ring, and
+  its env draws a fresh goal from the high level (explicit Gumbel draws
+  ``StepDraws.g_goal``, or the generator); at the iteration's end the high
+  level takes one masked REINFORCE step over the episodes that iteration
+  finished.
+
+ICM, RND and goals run in the sim-only steps of ``update_interval > 1`` too.
+
+Not ported, raising ``NotImplementedError``: ``hoist_bookkeeping=True``,
 ``use_pallas_physics=False`` on CUDA, and a non-None ``axis_name``.
 """
 
@@ -35,9 +54,13 @@ import torch
 
 from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac
+from tvc_ai_torch.agents.physics_informed import PhysicsInformedConfig, make_icm_physics_loss
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.rocket_env import ResetDraws
 from tvc_ai_torch.env.types import ACTION_DIM, OBS_DIM, EnvParams, EnvState
+from tvc_ai_torch.models import curiosity as icm_mod
+from tvc_ai_torch.models import hierarchical as hier_mod
+from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.models.mlp import GaussianActor
 from tvc_ai_torch.models.safety import SafetyConstraints, apply_safety
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
@@ -48,9 +71,8 @@ UPDATE_METRICS = ("critic_loss", "actor_loss", "alpha_loss", "alpha", "q1_mean",
 
 @dataclasses.dataclass(frozen=True)
 class TrainLoopConfig:
-    """Shape and cadence of the fused loop (the reference's fields; the
-    curiosity, RND, physics-informed and hierarchical sub-configs wait for
-    their modules)."""
+    """Shape and cadence of the fused loop and its extensions (the
+    reference's fields)."""
 
     num_envs: int = 4096
     rollout_steps: int = 100
@@ -69,14 +91,23 @@ class TrainLoopConfig:
     episode_ring_size: int = 256
     demo_fraction: float = 0.0
     hoist_bookkeeping: bool | None = None
+    curiosity: icm_mod.CuriosityConfig = dataclasses.field(
+        default_factory=icm_mod.CuriosityConfig)
+    rnd: rnd_mod.RNDConfig = dataclasses.field(default_factory=rnd_mod.RNDConfig)
+    physics_informed: PhysicsInformedConfig = dataclasses.field(
+        default_factory=PhysicsInformedConfig)
+    hierarchical: hier_mod.HierarchicalConfig = dataclasses.field(
+        default_factory=hier_mod.HierarchicalConfig)
     safety: SafetyConstraints = dataclasses.field(default_factory=SafetyConstraints)
 
 
 @dataclasses.dataclass
 class TrainCarry:
     """Everything the iteration threads from step to step. ``generator`` is
-    the counterpart of the reference's ``key``; the ICM, RND and
-    hierarchical fields are not ported."""
+    the counterpart of the reference's ``key``; ``env_steps_host`` is a
+    host copy of ``env_steps[0]`` (every env's count is the same), which
+    gates the RND update and masks the high level's episodes without a
+    device read. The extension fields are None when their option is off."""
 
     env_states: EnvState            # (N, ...)
     obs: torch.Tensor               # (N, policy_obs_dim) current policy observations
@@ -97,6 +128,14 @@ class TrainCarry:
     ep_ring_seq: torch.Tensor       # (K,) int32 env-step counter at completion, -1 empty
     ep_ring_ptr: torch.Tensor       # (1,) int32 next write slot
     demo_buffer: replay_mod.ReplayBuffer | None = None  # sampled, never written
+    icm: icm_mod.CuriosityState | None = None
+    rnd: rnd_mod.RNDState | None = None
+    hier: hier_mod.HighLevelState | None = None
+    goal: torch.Tensor | None = None              # (N,) int32 per-episode goal
+    goal_obs: torch.Tensor | None = None          # (N, obs_dim) frame at goal selection
+    ep_ring_goal: torch.Tensor | None = None      # (K,) int32 episode goal
+    ep_ring_goal_obs: torch.Tensor | None = None  # (K, obs_dim) frame at goal selection
+    env_steps_host: int = 0
 
 
 @dataclasses.dataclass
@@ -107,6 +146,7 @@ class StepDraws:
     n_imu: torch.Tensor | None = None   # (N, 7) IMU noise of the new obs
     reset: ResetDraws | None = None     # the autoreset's draws
     u_drop: torch.Tensor | None = None  # (N,) U[0, 1) sensor-dropout draw
+    g_goal: torch.Tensor | None = None  # (N, num_goals) Gumbel draws of the fresh goals
 
 
 @dataclasses.dataclass
@@ -129,21 +169,25 @@ class IterDraws:
 
 
 def policy_obs_dim(loop_cfg: TrainLoopConfig) -> int:
-    """What the agent sees: env obs × history."""
-    return loop_cfg.obs_dim * loop_cfg.history_len
+    """What the agent sees: env obs × history [‖ goal one-hot]."""
+    dim = loop_cfg.obs_dim * loop_cfg.history_len
+    if loop_cfg.use_hierarchical:
+        dim += loop_cfg.hierarchical.num_goals
+    return dim
+
+
+def augment_with_goal(obs: torch.Tensor, goal: torch.Tensor, loop_cfg: TrainLoopConfig
+                      ) -> torch.Tensor:
+    """[obs ‖ goal one-hot], the low level's conditioning."""
+    return torch.cat(
+        [obs, hier_mod.one_hot(goal, loop_cfg.hierarchical.num_goals, obs.dtype)], dim=-1)
 
 
 def _check_supported(loop_cfg: TrainLoopConfig, axis_name: str | None) -> None:
-    waits = {
-        "use_curiosity": "the ICM slice",
-        "use_rnd": "the RND slice",
-        "use_physics_informed": "the ICM slice",
-        "use_hierarchical": "the hierarchical slice",
-        "hoist_bookkeeping": "a later slice (the reference's hoisted path, default off)",
-    }
-    for name, module in waits.items():
-        if getattr(loop_cfg, name):
-            raise NotImplementedError(f"TrainLoopConfig.{name} is not ported; it waits for {module}")
+    if loop_cfg.hoist_bookkeeping:
+        raise NotImplementedError(
+            "TrainLoopConfig.hoist_bookkeeping is not ported; it waits for a later slice "
+            "(the reference's hoisted path, default off)")
     if axis_name is not None:
         raise NotImplementedError("data-parallel training (axis_name) waits for its own slice")
 
@@ -167,9 +211,10 @@ def init_carry(
     seed: int = 0,
     reset_draws: ResetDraws | None = None,
 ) -> TrainCarry:
-    """Reset N envs, initialize the agent, allocate the replay (capacity
-    ``buffer_size`` rounded down to a multiple of N, at least N) and zero
-    the counters and the ring."""
+    """Reset N envs, initialize the agent and the extensions that are on,
+    allocate the replay (capacity ``buffer_size`` rounded down to a multiple
+    of N, at least N) and zero the counters and the ring. With the
+    hierarchical option the first goals are drawn from the generator."""
     dev = resolve_device(device)
     n = loop_cfg.num_envs
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -187,6 +232,19 @@ def init_carry(
         return torch.zeros(size, dtype=dtype, device=dev)
 
     f32, i32 = torch.float32, torch.int32
+    ext = {}
+    if loop_cfg.use_curiosity:
+        ext["icm"] = icm_mod.init(loop_cfg.curiosity, dev, seed + 7)
+    if loop_cfg.use_rnd:
+        ext["rnd"] = rnd_mod.init(loop_cfg.rnd, dev, seed + 11)
+    if loop_cfg.use_hierarchical:
+        hier = hier_mod.init_high(loop_cfg.obs_dim, loop_cfg.hierarchical, dev, seed + 13)
+        goal_obs = obs_window[:, -1, :] if obs_window is not None else obs
+        ext.update(
+            hier=hier, goal_obs=goal_obs,
+            goal=hier_mod.sample_goal(hier, goal_obs, loop_cfg.hierarchical, generator=gen),
+            ep_ring_goal=zeros(k, i32),
+            ep_ring_goal_obs=torch.zeros((k, loop_cfg.obs_dim), device=dev))
     return TrainCarry(
         env_states=env_states, obs=obs, agent=agent, buffer=buffer, generator=gen,
         obs_window=obs_window,
@@ -197,6 +255,7 @@ def init_carry(
         ep_ring_success=zeros(k, f32),
         ep_ring_seq=torch.full((k,), -1, dtype=i32, device=dev),
         ep_ring_ptr=zeros(1, i32),
+        **ext,
     )
 
 
@@ -253,6 +312,9 @@ def make_train_iteration(
     )
     history, obs_dim = loop_cfg.history_len, loop_cfg.obs_dim
     ring_size = loop_cfg.episode_ring_size
+    use_hier = loop_cfg.use_hierarchical
+    phys_fn = (make_icm_physics_loss(loop_cfg.physics_informed)
+               if loop_cfg.use_physics_informed else None)
 
     def batched_step(states, actions, env_params, d: StepDraws, generator):
         # use_pallas_physics mirrors the reference's field; every case runs
@@ -306,7 +368,8 @@ def make_train_iteration(
         gen = carry.generator
         sd = d.step
         # --- act & simulate
-        actions = sac.select_action(carry.agent.actor, carry.obs, sd.n_act, generator=gen)
+        policy_input = augment_with_goal(carry.obs, carry.goal, loop_cfg) if use_hier else carry.obs
+        actions = sac.select_action(carry.agent.actor, policy_input, sd.n_act, generator=gen)
         cur_frame = carry.obs[:, -obs_dim:] if history > 1 else carry.obs
         if loop_cfg.use_safety_layer:
             actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)
@@ -325,12 +388,30 @@ def make_train_iteration(
         else:
             stacked_next_true, stacked_next_policy = out.obs, next_obs
 
-        # --- replay write (terminated-only done: truncation bootstraps)
+        # --- intrinsic rewards; the ICM trains every step, from the
+        # parameters that gave this step's reward
+        reward = out.reward
+        if loop_cfg.use_curiosity:
+            reward = reward + icm_mod.intrinsic_reward(
+                carry.icm, cur_frame, actions, out.obs, loop_cfg.curiosity)
+            icm_mod.update(carry.icm, cur_frame, actions, out.obs, loop_cfg.curiosity,
+                           physics_loss_fn=phys_fn)
+        if loop_cfg.use_rnd:
+            reward = reward + rnd_mod.intrinsic_reward(carry.rnd, out.obs, loop_cfg.rnd)
+            if carry.env_steps_host % loop_cfg.rnd.update_frequency == 0:
+                rnd_mod.update(carry.rnd, out.obs, loop_cfg.rnd)
+
+        # --- replay write (terminated-only done: truncation bootstraps);
+        # hierarchical mode stores the goal-augmented views
+        stored_obs, stored_next = carry.obs, stacked_next_true
+        if use_hier:
+            stored_obs = policy_input
+            stored_next = augment_with_goal(stacked_next_true, carry.goal, loop_cfg)
         buffer = replay_mod.add_batch(carry.buffer, {
-            "obs": carry.obs,
+            "obs": stored_obs,
             "action": actions,
-            "reward": out.reward,
-            "next_obs": stacked_next_true,
+            "reward": reward,
+            "next_obs": stored_next,
             "done": out.terminated.to(torch.float32),
         })
 
@@ -349,6 +430,18 @@ def make_train_iteration(
         return_sum = carry.return_sum + torch.where(done, ep_return, 0.0)
         length_sum = carry.length_sum + torch.where(done, ep_length.to(torch.float32), 0.0)
         slot, total = ring_slots(done, carry.ep_ring_ptr[0], ring_size)
+        # hierarchical: log (goal, frame at selection) with the episode, and
+        # give each finished env a fresh goal for its new episode
+        goal, goal_obs = carry.goal, carry.goal_obs
+        ep_ring_goal, ep_ring_goal_obs = carry.ep_ring_goal, carry.ep_ring_goal_obs
+        if use_hier:
+            ep_ring_goal = ring_set(ep_ring_goal, slot, goal)
+            ep_ring_goal_obs = ring_set(ep_ring_goal_obs, slot, goal_obs)
+            fresh_frame = obs_window[:, -1, :] if history > 1 else stacked_next_policy
+            fresh_goal = hier_mod.sample_goal(carry.hier, fresh_frame, loop_cfg.hierarchical,
+                                              sd.g_goal, gen)
+            goal = torch.where(done, fresh_goal, goal)
+            goal_obs = torch.where(done[:, None], fresh_frame, goal_obs)
         new_carry = TrainCarry(
             env_states=env_states,
             obs=stacked_next_policy,
@@ -369,6 +462,14 @@ def make_train_iteration(
             ep_ring_seq=ring_set(carry.ep_ring_seq, slot, carry.env_steps[0]),
             ep_ring_ptr=torch.remainder(carry.ep_ring_ptr + total, ring_size).to(torch.int32),
             demo_buffer=carry.demo_buffer,
+            icm=carry.icm,
+            rnd=carry.rnd,
+            hier=carry.hier,
+            goal=goal,
+            goal_obs=goal_obs,
+            ep_ring_goal=ep_ring_goal,
+            ep_ring_goal_obs=ep_ring_goal_obs,
+            env_steps_host=carry.env_steps_host + 1,
         )
         step_metrics = dict(upd_metrics, reward_mean=out.reward.mean(),
                             done_frac=done.to(torch.float32).mean())
@@ -384,6 +485,7 @@ def make_train_iteration(
             raise ValueError(f"draws holds {len(draws)} steps, want {steps}")
         zero = torch.zeros((), device=carry.obs.device)
         empty = IterDraws()
+        iter_start = carry.env_steps_host
         rows = []
         if k_int <= 1:
             for t in range(steps):
@@ -403,7 +505,16 @@ def make_train_iteration(
                 for name in ("reward_mean", "done_frac"):
                     merged[name] = torch.stack([m[name] for m in sim]).sum() / k_int
                 rows.append(merged)
-        return carry, mean_over(rows)
+        metrics = mean_over(rows)
+        if use_hier:
+            # REINFORCE on this iteration's finished episodes (older ring
+            # entries are masked out)
+            mask = (carry.ep_ring_seq >= iter_start).to(torch.float32)
+            _, hier_metrics = hier_mod.update_high_masked(
+                carry.hier, carry.ep_ring_goal_obs, carry.ep_ring_goal, carry.ep_ring_return,
+                mask, loop_cfg.hierarchical)
+            metrics.update(hier_metrics)
+        return carry, metrics
 
     return train_iteration
 

@@ -12,6 +12,7 @@ Counterpart of ``tvc_ai_tpu/training/trainer.py::Trainer``, on one device:
   reinit) change the actor in place between iterations;
 - evaluation is the batched deterministic rollout of ``eval.rollout`` on the
   EMA actor when there is one (nominal, optional robust, and stage evals);
+  in hierarchical mode ``make_hier_eval_fn`` on ``(actor, high level)``;
 - checkpoints are ``utils.checkpoint`` (best, best-nominal, periodic, final,
   and a recovery save on an exception) with a real ``resume``.
 
@@ -26,12 +27,15 @@ the episode ring), never per step. Each ``train_iteration`` stage ends in a
 device synchronisation so that ``StageTimer`` times the iteration, not its
 enqueue.
 
+The dormant-unit check probes the actor with what it sees: in hierarchical
+mode the goal-augmented observation (the reference probes with the bare
+observation, which does not fit an MLP actor's first layer there).
+
 Not ported, raising ``NotImplementedError`` with the module each waits for:
 more than one CUDA device with ``hardware.mesh_devices != 1`` (data
 parallel, ROADMAP module 9), ``training.warm_start_actor`` (it reads a flax
-msgpack), ``training.demo_seeding`` (``training/demos.py``, module 12) and
-hierarchical RL (``models/hierarchical.py``, module 10, raised by
-``config.build.build_loop_config``).
+msgpack) and ``training.demo_seeding`` (``training/demos.py``, module 12;
+with hierarchical RL on it is refused with the reference's ``ValueError``).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.config.build import build_env_params, build_loop_config, build_sac_config
 from tvc_ai_torch.config.schema import FrameworkConfig
-from tvc_ai_torch.eval.rollout import make_eval_fn, summarize_stats
+from tvc_ai_torch.eval.rollout import make_eval_fn, make_hier_eval_fn, summarize_stats
 from tvc_ai_torch.training import loop as loop_mod
 from tvc_ai_torch.training.curriculum import CurriculumManager
 from tvc_ai_torch.training.hacking import RewardHackingDetector
@@ -79,6 +83,11 @@ def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
         raise NotImplementedError(
             "training.warm_start_actor reads a flax msgpack student, which this "
             "package does not read (its distillation scripts wait for ROADMAP module 12)"
+        )
+    if cfg.training.demo_seeding.enabled and cfg.hierarchical_rl.enabled:
+        raise ValueError(
+            "training.demo_seeding does not support hierarchical mode "
+            "(demos would need goal-augmented views)"
         )
     if cfg.training.demo_seeding.enabled:
         raise NotImplementedError(
@@ -183,9 +192,15 @@ class Trainer:
 
         # ---- the iteration and the evaluation
         self._train_fn = loop_mod.make_train_iteration(self.sac_cfg, self.loop_cfg)
-        self._eval_fn = make_eval_fn(
-            self.sac_cfg, cfg.training.eval_episodes, history_len=self.loop_cfg.history_len
-        )
+        if self.loop_cfg.use_hierarchical:
+            self._eval_fn = make_hier_eval_fn(
+                self.sac_cfg, self.loop_cfg.hierarchical, cfg.training.eval_episodes,
+                history_len=self.loop_cfg.history_len,
+            )
+        else:
+            self._eval_fn = make_eval_fn(
+                self.sac_cfg, cfg.training.eval_episodes, history_len=self.loop_cfg.history_len
+            )
         self.logger.info("single device: %s", self.device)
 
         # ---- state
@@ -418,9 +433,12 @@ class Trainer:
                 self.stability.apply_primacy_reset(self.carry.agent.actor, self.generator)
                 self.logger.info("primacy-bias mitigation: partial weight reset")
             if self.stability.due_dormant_check():
+                probe = self.carry.obs[:256]
+                if self.loop_cfg.use_hierarchical:
+                    probe = loop_mod.augment_with_goal(probe, self.carry.goal[:256], self.loop_cfg)
                 reinit_dormant_units(
                     self.carry.agent.actor,
-                    self.carry.obs[:256],
+                    probe,
                     self.stability.cfg.dormant_threshold,
                     self.stability.cfg.reinit_dormant_ratio,
                     generator=self.generator,
@@ -590,6 +608,8 @@ class Trainer:
     def evaluate(self) -> dict[str, float]:
         # the EMA (Polyak) actor when enabled (sac.eval_actor_view)
         agent = sac_mod.eval_actor_view(self.carry.agent, self.sac_cfg)
+        if self.loop_cfg.use_hierarchical:
+            agent = (agent, self.carry.hier)
         metrics = summarize_stats(self._eval_fn(agent, self.generator, self.eval_env_params))
         if self.robust_eval_env_params is not None:
             robust = summarize_stats(
