@@ -102,6 +102,24 @@ card against the CPU, trains the default config with the four on for one
 32-step iteration with its hierarchical eval and a bit-equal resume, and
 times the env step with the extensions on against off, in turns.
 
+Phases [13a], [13b] and [13c] drive the export path and the rest of the
+learners. [13a] loads [9]'s trained default actor (256x256, obs 10) with
+``eval.evaluate.load_agent_state``, collects the calibration observations
+through K1 (64 envs, DR and noise off, card against CPU on the same draws),
+quantizes the actor to ``.tvcq`` (the bytes from the card's weights equal a
+CPU copy's), builds ``native/tvc_micro.cpp`` with g++ into
+``tvc_ai_torch/build/``, holds the int8 actions against the card's float
+deterministic actor within the export budget (max |d a| 0.1, else it fails),
+writes the C array, its header and the TFLM example, and checks that
+``native/`` is unchanged. [13b] holds one population iteration (3 agents x 16
+envs x 8 steps) and ``clone_winners`` card against CPU, then runs
+``PopulationConfig``'s defaults (4 agents x 128 envs x 64 steps, the default
+SAC widths) for two iterations, a clone and a profiled population learning
+step. [13c] holds ``SafetyCorrectionNet`` and ``correction_loss``'s gradient
+at 4096 rows card against CPU and times a forward + backward. The TFLite
+route of the export needs TensorFlow, which the card's host lacks; the
+script does not run it.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
@@ -117,6 +135,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import math
@@ -128,6 +147,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -141,9 +161,24 @@ from tvc_ai_torch.config import (
 )
 from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
-from tvc_ai_torch.eval.evaluate import _suite_env_params, run_all_suites
+from tvc_ai_torch.env.wrappers import RocketConfig
+from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state, run_all_suites
 from tvc_ai_torch.eval.rollout import EvalDraws, make_eval_fn, steps_run, summarize_stats
+from tvc_ai_torch.export.c_array import generate_c_array, generate_tflm_example
+from tvc_ai_torch.export.micro import MicroActor, build_runtime, export_micro, quantize_actor
+from tvc_ai_torch.export.tflite import (
+    CalibrationDraws,
+    benchmark_latency,
+    calibration_shape,
+    collect_representative_obs,
+)
 from tvc_ai_torch.models import hierarchical as hier_mod
+from tvc_ai_torch.models.safety import (
+    SafetyConstraints,
+    SafetyCorrectionNet,
+    correction_loss,
+    violations,
+)
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.physics import integrator
@@ -152,11 +187,19 @@ from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.training import loop
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
 from tvc_ai_torch.train import main as train_main
+from tvc_ai_torch.training.population import (
+    PopulationConfig,
+    clone_winners,
+    init_population,
+    make_population_iteration,
+    population_returns,
+)
 from tvc_ai_torch.training.trainer import Trainer
 from tvc_ai_torch.training.trainer_ensemble import FINAL_CHECKPOINT, EnsembleTrainer
 from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
 from tvc_ai_torch.utils.devices import set_parity_precision
 
+ROOT = Path(__file__).resolve().parent
 N_ENVS = 4096
 ENV_STEPS_PER_CALL, ENV_TIMED_CALLS = 256, 2   # bench.py's call shape, 2 calls
 ROLLOUT_STEPS = 128
@@ -361,6 +404,34 @@ def device_breakdown(prof, steps: int, step_ms: float, tag: str, what: str,
         log(f"{tag} {sum(durs) / steps:9.5f} ms/step {len(durs) / steps:6.1f}x {name[:90]}")
     return {**{name: sum(durs) / steps for name, durs in by_name.items()},
             "busy": busy_ms, "ops": len(spans) / steps}
+
+
+def learner_draws(params: EnvParams, n: int, steps: int, sac_cfg: sac.SACConfig,
+                  gen: torch.Generator) -> tuple[rocket_env.ResetDraws, list[IterDraws]]:
+    """CPU draws of a train iteration of n envs over ``steps`` steps from an
+    empty replay: the first reset's, then each step's (action and IMU noise,
+    the autoreset's) and, once the replay holds ``learning_starts`` rows,
+    one update's (rows, noise)."""
+    cpu = torch.device("cpu")
+    reset_draws = rocket_env.draw_reset(params, n, cpu, gen)
+    iter_draws = []
+    for t in range(steps):
+        size = (t + 1) * n
+        iter_draws.append(IterDraws(
+            step=StepDraws(
+                n_act=torch.randn((n, 2), generator=gen),
+                n_imu=torch.randn((n, 7), generator=gen),
+                reset=rocket_env.draw_reset(params, n, cpu, gen),
+            ),
+            samples=[SampleDraws(
+                idx=torch.randint(0, size, (sac_cfg.batch_size,), generator=gen),
+                update=sac.UpdateDraws(
+                    n_next=torch.randn((sac_cfg.batch_size, 2), generator=gen),
+                    n_pi=torch.randn((sac_cfg.batch_size, 2), generator=gen),
+                ),
+            )] if size >= sac_cfg.learning_starts else [],
+        ))
+    return reset_draws, iter_draws
 
 
 def to_device(d, where):
@@ -1538,6 +1609,253 @@ def run_extension_trainer(scratch: Path, dev) -> int:
     return launches
 
 
+EXPORT_SAMPLES = 100          # [13a] calibration rows (the reference's default)
+EXPORT_BUDGET = 0.1           # [13a] max |d action| of the int8 actor (the reference's budget)
+MICRO_INFERENCES = 2000       # [13a] MicroActor calls timed on the host
+POP_CHECK = dict(num_agents=3, envs_per_agent=16, rollout_steps=8)   # [13b] card vs CPU
+POP_ITERS = 2                 # [13b] iterations at PopulationConfig's defaults
+SAFETY_ROWS = 4096            # [13c]
+SAFETY_BAR = dict(atol=1e-5, rtol=1e-5)
+
+
+def native_fingerprint() -> dict:
+    """Size, mtime and hash of every file under ``native/``."""
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns,
+                     hashlib.sha256(p.read_bytes()).hexdigest())
+            for p in sorted((ROOT / "native").iterdir())}
+
+
+def export_trained_actor(scratch: Path, dev, n_obs: int, native_before: dict) -> int:
+    """[13a]: [9]'s trained default actor through the native int8 export:
+    the calibration rollout card vs CPU on the same draws, the ``.tvcq``
+    from the card's weights against the CPU copy's, the runtime built with
+    g++ into ``tvc_ai_torch/build/``, the int8 actions against the card's
+    float deterministic actor, the C artifacts. Returns the rollout's K1
+    launches."""
+    sac_cfg = build_sac_config(load_config(default_config_path()))
+    ckpt = scratch / "run1" / "checkpoints"
+    card, host_agent = (load_agent_state(ckpt, n_obs, 2, sac_cfg, where) for where in (dev, "cpu"))
+    actor = card.actor
+    assert actor.hidden_dims == (256, 256) and actor.mean_head.weight.device == dev, actor
+    export_params = RocketConfig().to_env_params(
+        domain_randomization=False, sensor_noise=False, max_episode_steps=1000)
+    n, steps = calibration_shape(EXPORT_SAMPLES)
+    cpu, gen = torch.device("cpu"), torch.Generator().manual_seed(SEED + 60)
+    draws = CalibrationDraws(
+        reset=rocket_env.draw_reset(export_params, n, cpu, gen),
+        actions=[randomization.draw_uniform((n, 2), cpu, gen) for _ in range(steps)],
+        steps=[StepDraws(reset=rocket_env.draw_reset(export_params, n, cpu, gen))
+               for _ in range(steps)])
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    calib = collect_representative_obs(None, export_params, EXPORT_SAMPLES, n_obs, device=dev,
+                                       draws=to_device(draws, dev))
+    calib_s = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    host = collect_representative_obs(None, export_params, EXPORT_SAMPLES, n_obs, device="cpu",
+                                      draws=draws)
+    assert launches == k1.step_kernel.launches == steps, (launches, steps)
+    assert calib.shape == (EXPORT_SAMPLES, n_obs), calib.shape
+    torch.testing.assert_close(torch.from_numpy(calib), torch.from_numpy(host), **OBS)
+
+    t0 = time.perf_counter()
+    lib = build_runtime()
+    build_first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert build_runtime() == lib
+    build_cached_s = time.perf_counter() - t0
+    assert lib.parent == ROOT / "tvc_ai_torch" / "build", lib
+    out = scratch / "export"
+    path = export_micro(actor, calib, out)
+    model = path.read_bytes()
+    assert model == quantize_actor(host_agent.actor, calib), (
+        "the .tvcq from the card's weights differs from the CPU copy's")
+    micro = MicroActor(model, lib)
+    assert (micro.input_dim, micro.output_dim) == (n_obs, 2)
+    int8 = micro(calib)
+    float_actions = sac.select_action(actor, torch.from_numpy(calib).to(dev),
+                                      deterministic=True).cpu().numpy()
+    diff = np.abs(int8 - float_actions)
+    if not diff.max() <= EXPORT_BUDGET:
+        raise AssertionError(f"int8 export parity {diff.max():.4f} above {EXPORT_BUDGET}")
+    micro_us = benchmark_latency(micro, calib, n=MICRO_INFERENCES)
+    cc, h = generate_c_array(model, out, name="tvc_actor")
+    example = generate_tflm_example(out, obs_dim=n_obs, action_dim=2)
+    for f in (cc, h, example):
+        assert f.stat().st_size > 0, f
+    assert native_fingerprint() == native_before, "native/ changed"
+    git = (subprocess.run(["git", "status", "--porcelain", "native/"], cwd=ROOT,
+                          capture_output=True, text=True, check=True).stdout
+           if (ROOT / ".git").exists() and shutil.which("git") else None)
+    assert not git, git
+    log(f"[13a] export of [9]'s trained {actor.hidden_dims} actor (obs {n_obs}): calibration "
+        f"rollout {n} envs x {steps} step(s) in {calib_s:.4f} s, card (K1) vs CPU (plain) max "
+        f"|d obs| {float(np.abs(calib - host).max()):.3e} (atol {OBS['atol']}, rtol "
+        f"{OBS['rtol']}), K1 launches {launches}; {path.name} {len(model)} B, equal to the CPU "
+        f"copy's bytes; g++ build {build_first_s:.3f} s first use, {build_cached_s * 1e3:.3f} ms "
+        f"cached ({lib.name}); int8 vs the card's float actor over {len(calib)} rows: max |d a| "
+        f"{diff.max():.5f} (budget {EXPORT_BUDGET}), mean {diff.mean():.5f}; MicroActor "
+        f"{micro_us:.2f} us per inference on the host; C artifacts {cc.name} "
+        f"({cc.stat().st_size} B), {h.name}, {example.name}: ok")
+    log(f"[13a] native/ unchanged ({len(native_before)} files: size, mtime, sha256); git status "
+        f"--porcelain native/: "
+        + ("not run (not a git checkout)" if git is None else repr(git)))
+    micro.close()
+    return launches
+
+
+def population_card_vs_cpu(dev, short: EnvParams) -> None:
+    """[13b]: one population iteration (3 agents x 16 envs x 8 steps,
+    updates from step 4) card against CPU from the same weights and draws,
+    then ``clone_winners`` on both."""
+    pcfg = PopulationConfig(**POP_CHECK)
+    n, steps = pcfg.envs_per_agent, pcfg.rollout_steps
+    sac_cfg = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * n, learning_starts=4 * n))
+    gen = torch.Generator().manual_seed(SEED + 70)
+    per_agent = [learner_draws(short, n, steps, sac_cfg, gen) for _ in range(pcfg.num_agents)]
+    out = {}
+    for where in ("cpu", dev):
+        k1.step_kernel.launches = 0
+        carries = init_population(short, sac_cfg, pcfg, device=where, seed=SEED + 70,
+                                  reset_draws=[to_device(r, where) for r, _ in per_agent])
+        carries, metrics = make_population_iteration(sac_cfg, pcfg)(
+            carries, short, [to_device(d, where) for _, d in per_agent])
+        out[where] = (carries, metrics, k1.step_kernel.launches)
+    torch.cuda.synchronize()
+    (a, am, a_launches), (b, bm, b_launches) = out[dev], out["cpu"]
+    assert (a_launches, b_launches) == (pcfg.num_agents * steps, 0), (a_launches, b_launches)
+    param_err = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.agent.step == y.agent.step == steps - 3, (i, x.agent.step, y.agent.step)
+        torch.testing.assert_close(x.obs.cpu(), y.obs, **OBS)
+        for name in ("episodes", "ep_length", "ep_ring_seq"):
+            assert torch.equal(getattr(x, name).cpu(), getattr(y, name)), f"agent {i} {name}"
+        for net in ("actor", "critic", "target_critic"):
+            param_err = max(param_err, net_param_err(getattr(x.agent, net), getattr(y.agent, net),
+                                                     f"agent {i} {net}"))
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    ra, rb = population_returns(a), population_returns(b)
+    torch.testing.assert_close(ra.cpu(), rb, **REWARD)
+    order = torch.argsort(rb, stable=True).tolist()
+    assert torch.argsort(ra, stable=True).tolist() == order, (ra, rb)
+    pick = torch.randint(0, 1, (1,), generator=gen)
+    ca, cb = clone_winners(a, pick=pick), clone_winners(b, pick=pick)
+    loser, winner = order[0], order[-1]
+    for cloned, src in ((ca, a), (cb, b)):
+        assert not diff_states(cloned[loser].agent, src[winner].agent), "clone differs"
+        assert cloned[loser].agent.actor is not src[winner].agent.actor
+    log(f"[13b] population {pcfg.num_agents} agents x {n} envs x {steps} steps, card (K1) vs "
+        f"CPU (plain): max |d param| {param_err:.3e} (atol {PARAMS['atol']}), returns "
+        f"{[round(float(r), 4) for r in rb]} (order {order}), clone_winners: agent {loser} "
+        f"holds a copy of agent {winner}'s state, bit for bit on both; K1 launches {a_launches}: "
+        "ok")
+
+
+def run_population(dev, env_params: EnvParams) -> int:
+    """[13b]: ``PopulationConfig``'s defaults (4 agents x 128 envs, 64 steps, 1
+    update per step) with the default SAC widths for two iterations, a clone,
+    one profiled population learning step. Returns the iterations' K1
+    launches."""
+    sac_cfg = sac.SACConfig(**DEFAULT_SAC)
+    pcfg = PopulationConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # what earlier phases still hold
+    carries = init_population(env_params, sac_cfg, pcfg, device=dev, seed=SEED + 71)
+    it = make_population_iteration(sac_cfg, pcfg)
+    k1.step_kernel.launches = 0
+    iter_s, updates = [], []
+    for _ in range(POP_ITERS):
+        before = sum(c.agent.step for c in carries)
+        t0 = time.perf_counter()
+        carries, metrics = it(carries, env_params)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        updates.append(sum(c.agent.step for c in carries) - before)
+    launches = k1.step_kernel.launches
+    env_steps = pcfg.num_agents * pcfg.rollout_steps
+    assert launches == POP_ITERS * env_steps, (launches, POP_ITERS * env_steps)
+    assert updates[-1] == env_steps and 0 < updates[0] < env_steps, updates
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values()), metrics
+    peak = torch.cuda.max_memory_allocated()
+    replay_bytes = sum(t.numel() * t.element_size() for c in carries
+                       for t in c.buffer.data.values())
+    returns = population_returns(carries)
+    cloned = clone_winners(carries, generator=torch.Generator().manual_seed(SEED + 72))
+    order = torch.argsort(returns, stable=True).tolist()
+    assert not diff_states(cloned[order[0]].agent, carries[order[-1]].agent)
+    one = make_population_iteration(sac_cfg, dataclasses.replace(pcfg, rollout_steps=1))
+    cloned, _ = one(cloned, env_params)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cloned, _ = one(cloned, env_params)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    device_breakdown(prof, 1, step_ms, "[13b]",
+                     f"profiled population learning step ({pcfg.num_agents} agents x "
+                     f"{pcfg.envs_per_agent} envs, 1 update each)", top=8)
+    del prof
+    n_envs = pcfg.num_agents * pcfg.envs_per_agent
+    log(f"[13b] population at PopulationConfig's defaults ({pcfg.num_agents} agents x "
+        f"{pcfg.envs_per_agent} envs x {pcfg.rollout_steps} steps, default SAC widths, batch "
+        f"{sac_cfg.batch_size}, replay {carries[0].buffer.capacity} rows per agent): "
+        + ", ".join(f"{s:.4f} s" for s in iter_s) + " per iteration = "
+        + ", ".join(f"{n_envs * pcfg.rollout_steps / s:.1f}" for s in iter_s)
+        + " env steps/s, " + ", ".join(f"{u / s:.1f}" for u, s in zip(updates, iter_s))
+        + f" updates/s ({updates} updates; learning_starts {sac_cfg.learning_starts}); peak "
+        f"device memory {peak / 1e6:.1f} MB, {(peak - held) / 1e6:.1f} MB above the "
+        f"{held / 1e6:.1f} MB earlier phases hold, with {replay_bytes / 1e6:.1f} MB of "
+        f"replays; K1 "
+        f"launches {launches} = {launches // (POP_ITERS * pcfg.rollout_steps)} per population "
+        f"env step; returns {[round(float(r), 3) for r in returns]}, clone: agent {order[0]} "
+        f"<- agent {order[-1]}: ok")
+    return launches
+
+
+def safety_card_vs_cpu(dev, n_obs: int) -> None:
+    """[13c]: ``SafetyCorrectionNet`` forward and ``correction_loss``'s
+    gradient at 4096 rows, card against CPU from the same weights; device and
+    host ms per forward + backward."""
+    gen = torch.Generator().manual_seed(SEED + 80)
+    obs = torch.randn((SAFETY_ROWS, n_obs), generator=gen)
+    obs[:, :4] = obs[:, :4] / obs[:, :4].norm(dim=-1, keepdim=True)
+    obs[: SAFETY_ROWS // 2, :4] = torch.tensor([0.0, 0.0, 0.0, 1.0]) + 0.05 * torch.randn(
+        (SAFETY_ROWS // 2, 4), generator=gen)
+    obs[:, 4:7] *= 3.0
+    act = torch.rand((SAFETY_ROWS, 2), generator=gen) * 2.4 - 1.2
+    c = SafetyConstraints()
+    res = {}
+    for where in ("cpu", dev):
+        net = SafetyCorrectionNet(obs_dim=n_obs, device=where, seed=SEED)
+        o, a = obs.to(where), act.to(where)
+        out = net(o, a)
+        loss = correction_loss(net, o, a, c)
+        res[where] = (net, o, a, out.detach(), loss.detach(),
+                      torch.autograd.grad(loss, list(net.parameters())))
+    torch.cuda.synchronize()
+    (net, o, a, out, loss, grads), (_, _, _, h_out, h_loss, h_grads) = res[dev], res["cpu"]
+    torch.testing.assert_close(out.cpu(), h_out, **SAFETY_BAR)
+    torch.testing.assert_close(loss.cpu(), h_loss, **SAFETY_BAR)
+    for (name, _), g, h in zip(net.named_parameters(), grads, h_grads):
+        torch.testing.assert_close(g.cpu(), h, **SAFETY_BAR, msg=name)
+    grad_err = max(float((g.cpu() - h).abs().max()) for g, h in zip(grads, h_grads))
+    violated = float(violations(obs, act, c).float().mean())
+    params = list(net.parameters())
+
+    def step():
+        return torch.autograd.grad(correction_loss(net, o, a, c), params)
+
+    fwd_bwd_ms = device_ms(step, reps=30, inner=5)
+    fwd_bwd_host_ms = host_us(step, reps=9, inner=10) / 1e3
+    log(f"[13c] SafetyCorrectionNet at {SAFETY_ROWS} rows ({violated:.1%} violate), card vs "
+        f"CPU: max |d out| {float((out.cpu() - h_out).abs().max()):.3e}, |d loss| "
+        f"{float((loss.cpu() - h_loss).abs()):.3e}, max |d grad| {grad_err:.3e} (atol "
+        f"{SAFETY_BAR['atol']}, rtol {SAFETY_BAR['rtol']}); forward + correction_loss "
+        f"gradient: device {fwd_bwd_ms:.4f} ms, host {fwd_bwd_host_ms:.4f} ms per call: ok")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
@@ -1546,6 +1864,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     dev = torch.device("cuda", 0)
+    native_before = native_fingerprint()
     set_parity_precision()
     smi = nvidia_smi_line()
     log(f"[1] nvidia-smi: {smi}")
@@ -1784,25 +2103,8 @@ def main() -> int:
                                      learning_starts=4 * small))
     short_loop = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=small, rollout_steps=steps),
                                       obs_dim=n_obs)
-    cpu_gen = torch.Generator().manual_seed(SEED + 5)
-    reset_draws = rocket_env.draw_reset(short, small, torch.device("cpu"), cpu_gen)
-    iter_draws = []
-    for t in range(steps):
-        size = (t + 1) * small
-        iter_draws.append(IterDraws(
-            step=StepDraws(
-                n_act=torch.randn((small, 2), generator=cpu_gen),
-                n_imu=torch.randn((small, 7), generator=cpu_gen),
-                reset=rocket_env.draw_reset(short, small, torch.device("cpu"), cpu_gen),
-            ),
-            samples=[SampleDraws(
-                idx=torch.randint(0, size, (short_sac.batch_size,), generator=cpu_gen),
-                update=sac.UpdateDraws(
-                    n_next=torch.randn((short_sac.batch_size, 2), generator=cpu_gen),
-                    n_pi=torch.randn((short_sac.batch_size, 2), generator=cpu_gen),
-                ),
-            )] if size >= short_sac.learning_starts else [],
-        ))
+    reset_draws, iter_draws = learner_draws(short, small, steps, short_sac,
+                                            torch.Generator().manual_seed(SEED + 5))
     learned = {}
     for where in ("cpu", "cuda"):
         carry = loop.init_carry(short, short_sac, short_loop, device=where, seed=SEED,
@@ -2078,6 +2380,20 @@ def main() -> int:
         ensemble_launches["extensions_card_vs_cpu"] = EXT_STEPS
         phase("[12c] trainer")
         ensemble_launches["extensions"] = run_extension_trainer(scratch, dev)
+
+        # ---- 13. the export of [9]'s trained actor through the native int8
+        # runtime; population training; the safety correction net
+        phase("[13a]")
+        ensemble_launches["export_calibration"] = export_trained_actor(
+            scratch, dev, n_obs, native_before)
+        phase("[13b]")
+        population_card_vs_cpu(dev, short)
+        ensemble_launches["population_card_vs_cpu"] = (POP_CHECK["num_agents"]
+                                                       * POP_CHECK["rollout_steps"])
+        phase("[13b] defaults")
+        ensemble_launches["population"] = run_population(dev, env_params)
+        phase("[13c]")
+        safety_card_vs_cpu(dev, n_obs)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

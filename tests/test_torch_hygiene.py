@@ -15,18 +15,22 @@ import torch
 
 import tvc_ai_torch
 from tvc_ai_torch.agents import ensemble, ppo, sac, td3
+from tvc_ai_torch.agents.legacy import SACAgent
 from tvc_ai_torch.agents.replay import ReplayBuffer
 from tvc_ai_torch.config import load_config
 from tvc_ai_torch.convert import env_state_from_numpy, sac_state_from_numpy
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams
-from tvc_ai_torch.eval.evaluate import run_all_suites, run_suite
+from tvc_ai_torch.eval.evaluate import load_agent_state, run_all_suites, run_suite
 from tvc_ai_torch.evaluate import main as evaluate_main
+from tvc_ai_torch.export.__main__ import main as export_main
+from tvc_ai_torch.export.tflite import ExportError, collect_representative_obs
 from tvc_ai_torch.models import curiosity as icm
 from tvc_ai_torch.models import hierarchical, rnd
+from tvc_ai_torch.models.safety import SafetyCorrectionNet
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.train import main as train_main
-from tvc_ai_torch.training import loop
+from tvc_ai_torch.training import loop, population
 from tvc_ai_torch.training.trainer import Trainer
 from tvc_ai_torch.training.trainer_ensemble import EnsembleTrainer
 
@@ -60,7 +64,8 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.utils.profiling", "tvc_ai_torch.train",
             "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
             "tvc_ai_torch.agents.ensemble",
-            "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES} <= set(MODULES)
+            "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
+            *EXPORT_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -68,9 +73,15 @@ def test_every_module_imports_without_jax():
 EXTENSION_MODULES = ["tvc_ai_torch.agents.physics_informed", "tvc_ai_torch.models.curiosity",
                      "tvc_ai_torch.models.hierarchical", "tvc_ai_torch.models.layers",
                      "tvc_ai_torch.models.rnd", "tvc_ai_torch.models.transformer"]
+# the export path, the legacy agent it reads, population training and the
+# safety correction net
+EXPORT_MODULES = ["tvc_ai_torch.agents.legacy", "tvc_ai_torch.export",
+                  "tvc_ai_torch.export.__main__", "tvc_ai_torch.export.c_array",
+                  "tvc_ai_torch.export.micro", "tvc_ai_torch.export.tflite",
+                  "tvc_ai_torch.models.safety", "tvc_ai_torch.training.population"]
 
 
-@pytest.mark.parametrize("name", EXTENSION_MODULES)
+@pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -129,7 +140,8 @@ def _numpy_sac_state(cfg: sac.SACConfig) -> dict:
 ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_create",
                 "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites",
                 "td3_init", "ppo_init", "ensemble_init_carry", "ensemble_agent",
-                "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init"]
+                "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init",
+                "sac_agent", "init_population", "safety_net", "load_agent_file"]
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
 TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
         "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
@@ -174,7 +186,18 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "icm_init": lambda: next(icm.init(icm.CuriosityConfig(hidden_dim=8)).nets.parameters()),
         "rnd_init": lambda: rnd.init(rnd.RNDConfig(hidden_dims=(8,), embed_dim=4)).bonus_var,
         "high_init": lambda: hierarchical.init_high(10, hierarchical.HierarchicalConfig()).step,
+        "sac_agent": lambda: SACAgent(10, 2, small).log_alpha,
+        "init_population": lambda: population.init_population(
+            EnvParams(), small, population.PopulationConfig(num_agents=2, envs_per_agent=4)
+        )[1].obs,
+        "safety_net": lambda: next(SafetyCorrectionNet().parameters()),
+        "load_agent_file": lambda: load_agent_state(agent_file(), 10, 2, small).log_alpha,
     }
+
+    def agent_file():
+        SACAgent(10, 2, small, device=AGENT_DEVICE).save(tmp_path / "agent.pt")
+        return tmp_path / "agent.pt"
+
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"
     else:
@@ -262,6 +285,53 @@ def test_ensemble_path_reaches_physics_only_through_k1(monkeypatch):
     ppo.make_train_iteration(cfg.ppo, 4, 3, 10, 2)(
         ppo.init(10, 2, cfg.ppo, device="cpu"), states, obs, gen, params)
     assert calls == ["cpu"] * (3 * len(ensemble.ACTORS) + 3)
+
+
+def test_export_command_defaults_to_cuda(tmp_path):
+    """``python -m tvc_ai_torch.export`` asks for CUDA unless ``--cpu`` is
+    given; where TensorFlow is absent (the card's host) it then raises
+    ``ExportError``."""
+    SACAgent(10, 2, sac.SACConfig((8, 8), buffer_size=64), device=AGENT_DEVICE).save(
+        tmp_path / "agent.pt")
+    argv = ["--model_path", str(tmp_path / "agent.pt"), "--obs_dim", "10", "--hidden", "8", "8",
+            "--output_dir", str(tmp_path / "export")]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            export_main(argv)
+    elif importlib.util.find_spec("tensorflow") is None:
+        with pytest.raises(ExportError):
+            export_main(argv)
+    else:
+        assert export_main(argv) == 0
+
+
+def test_export_and_population_paths_reach_physics_only_through_k1(monkeypatch):
+    """The export's calibration rollout and the population iteration
+    integrate through K1's wrapper, never the plain integrator."""
+    from tvc_ai_torch.env.wrappers import RocketConfig
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("an export or population path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    export_params = RocketConfig().to_env_params(domain_randomization=False, sensor_noise=False,
+                                                 max_episode_steps=1000)
+    obs = collect_representative_obs(None, export_params, 200, 10, device="cpu")
+    assert obs.shape == (200, 10)
+    small = sac.SACConfig((8, 8), batch_size=8, buffer_size=64, learning_starts=8)
+    pcfg = population.PopulationConfig(num_agents=2, envs_per_agent=4, rollout_steps=3)
+    params = EnvParams(max_episode_steps=3)
+    carries = population.init_population(params, small, pcfg, device="cpu", seed=1)
+    population.make_population_iteration(small, pcfg)(carries, params)
+    assert calls == ["cpu"] * (3 + 2 * 3)
 
 
 def test_port_reads_no_yaml_of_the_jax_package():

@@ -1,6 +1,7 @@
 """Carry weights, optimizer, replay, env and loop state across from the JAX package
-(the SAC loop's carry with its ICM, RND and high-level state, and the
-ensemble's with its TD3 and PPO members).
+(the SAC loop's carry with its ICM, RND and high-level state, a population's
+carries, the ensemble's with its TD3 and PPO members, and the safety
+correction net).
 
 The inputs are plain host data: nested dicts, tuples (or attribute objects)
 whose leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing
@@ -33,6 +34,7 @@ from tvc_ai_torch.models import hierarchical as hier_mod
 from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.training.loop import TrainCarry, TrainLoopConfig, policy_obs_dim
+from tvc_ai_torch.training.population import PopulationConfig, loop_config
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -92,6 +94,11 @@ def deterministic_actor_from_flax(params: Mapping[str, Any]) -> dict[str, torch.
 
 def value_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``ValueNetwork`` state dict (``v_head``) from flax value params."""
+    return _dense_layers(params)
+
+
+def safety_net_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``SafetyCorrectionNet`` state dict (``Dense_0``..``Dense_2``) from flax params."""
     return _dense_layers(params)
 
 
@@ -335,6 +342,38 @@ def train_carry_from_numpy(
         **optional,
         **{name: _tensor(_get(carry, name), dev) for name in counters},
     )
+
+
+def _agent_slice(tree: Any, i: int) -> Any:
+    """Agent ``i`` of a tree whose array leaves carry a leading agent axis;
+    scalar leaves (static fields such as a replay's ``capacity``) stay."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _agent_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # optax's named tuples
+        return type(tree)(*(_agent_slice(v, i) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_agent_slice(v, i) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return {f.name: _agent_slice(getattr(tree, f.name), i) for f in dataclasses.fields(tree)}
+    a = np.asarray(tree)
+    return a[i] if a.ndim >= 1 else tree
+
+
+def population_from_numpy(
+    carry: Any,
+    sac_cfg: sac.SACConfig,
+    pop_cfg: PopulationConfig,
+    device: str | torch.device = DEFAULT_DEVICE,
+    seed: int = 0,
+) -> list[TrainCarry]:
+    """One ``TrainCarry`` per agent from a JAX population carry (every leaf
+    with a leading agent axis P) mapped to numpy; agent ``i``'s generator is
+    seeded with ``seed + i``."""
+    loop_cfg = loop_config(pop_cfg)
+    return [train_carry_from_numpy(_agent_slice(carry, i), sac_cfg, loop_cfg, device, seed + i)
+            for i in range(pop_cfg.num_agents)]
 
 
 def td3_state_from_numpy(

@@ -8,8 +8,9 @@ Counterpart of ``tvc_ai_tpu/eval/evaluate.py``:
 
 Each suite runs all its episodes as one batch (``eval.rollout``, K1 on the
 card). ``load_agent_state`` reads the port's own checkpoints
-(``utils.checkpoint``); a flax msgpack or an orbax checkpoint of the JAX
-package is out of scope and raises.
+(``utils.checkpoint``) and ``SACAgent.save`` files (``agents.legacy``); a
+flax msgpack or an orbax checkpoint of the JAX package is out of scope and
+raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 
 from tvc_ai_torch.agents import sac as sac_mod
+from tvc_ai_torch.agents.legacy import read_agent_file
 from tvc_ai_torch.env.types import EnvParams, as_float32
 from tvc_ai_torch.env.wrappers import RocketConfig
 from tvc_ai_torch.eval.rollout import (
@@ -253,19 +255,17 @@ def load_agent_state(
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> sac_mod.SACState:
     """The agent of a port checkpoint: a manager root (its latest step) or one
-    step directory. The EMA actor is preferred when the checkpoint has one.
-    A flax msgpack file or an orbax checkpoint raises ``NotImplementedError``."""
+    step directory, whose EMA actor is preferred when it has one; or a
+    ``SACAgent.save`` file, restored whole. A flax msgpack file or an orbax
+    checkpoint raises ``NotImplementedError``."""
     dev = resolve_device(device)
     path = Path(model_path)
+    template = sac_mod.init(obs_dim, action_dim, sac_cfg, dev)
     if path.is_file():
-        raise NotImplementedError(
-            f"{path}: a flax msgpack agent file is out of scope for this package; "
-            "it reads its own checkpoints (<dir>/<step>/carry.pt)"
-        )
+        return load_state(template, read_agent_file(path, dev)["state"])
     mngr, step = CheckpointManager.locate(path)
     payload, _ = mngr.restore(step, dev)
     agent_state = payload["carry"]["agent"]
-    template = sac_mod.init(obs_dim, action_dim, sac_cfg, dev)
     ema = agent_state.get("ema_actor")
     load_state(template.actor, ema if ema is not None else agent_state["actor"])
     load_state(template.critic, agent_state["critic"])
