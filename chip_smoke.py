@@ -120,6 +120,34 @@ at 4096 rows card against CPU and times a forward + backward. The TFLite
 route of the export needs TensorFlow, which the card's host lacks; the
 script does not run it.
 
+Phases [14a] and [14b] drive data-parallel training (``parallel.mesh``).
+[14a] spawns two gloo ranks on the card (both on cuda:0) and two on the CPU,
+each pair one group, and runs ``make_sharded_train`` for one 16-step
+iteration (256 envs, 128 a rank, 8-step episodes: updates, resets and ring
+writes all fire) and ``make_sharded_ensemble_train`` with sac and with ppo
+acting, every rank on its own draws, the same on both sides: each rank's
+parameters card vs CPU at 1e-4, its env shard, replay and counters at the
+env bars, and on each side the replicas bit for bit equal across the ranks;
+it prints each card rank's K1 launches. [14b] runs one default-config
+iteration (4096 envs x 128 steps, 256x256, batch 256, after a 16-step
+warm-up) three ways in turns: unsharded, ``make_sharded_train`` at world 1
+on NCCL in this process, and at world 2 on gloo with both ranks on cuda:0
+(2048 envs each); it prints s per iteration, env steps/s, all-reduces per
+update and the time of one all-reduce of the critic's gradient, then runs
+``torchrun --standalone --nproc-per-node 1 -m tvc_ai_torch.train`` for one
+32-step iteration and fails on a non-zero exit. [14c] runs [14a]'s sharded
+runs and [14b]'s iteration at world 2 on NCCL, rank r on cuda:r, where the
+host has two GPUs (held against [14a]'s gloo ranks); on a one-GPU host it
+says that NCCL at world 2 is not checked. Phases [15a] and [15b] drive LQR
+demonstration seeding (``training.demos``): [15a] times ``design_lqr`` on the
+host CPU and holds ``generate_demonstrations`` (64 envs x 32 steps in
+``robust_r4.yaml``'s demo env) through K1 against the CPU on the same
+draws; [15b] trains ``robust_r4.yaml`` at its widths (512 envs, demo seeding
+of 512 envs x 600 steps, a 25 % demo fraction, BC 2.5) with
+``rollout_steps`` cut from 128 to 16 for two iterations and prints the demo
+seeding's seconds and success rate, the replay and demo-buffer sizes, s per
+iteration, updates/s and K1 launches.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
@@ -184,7 +212,8 @@ from tvc_ai_torch.ops import step_kernel as k1
 from tvc_ai_torch.physics import integrator
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
-from tvc_ai_torch.training import loop
+from tvc_ai_torch.parallel import mesh
+from tvc_ai_torch.training import demos, loop
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
 from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training.population import (
@@ -194,7 +223,7 @@ from tvc_ai_torch.training.population import (
     make_population_iteration,
     population_returns,
 )
-from tvc_ai_torch.training.trainer import Trainer
+from tvc_ai_torch.training.trainer import Trainer, demo_env_params
 from tvc_ai_torch.training.trainer_ensemble import FINAL_CHECKPOINT, EnsembleTrainer
 from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
 from tvc_ai_torch.utils.devices import set_parity_precision
@@ -601,19 +630,19 @@ FLAGSHIP_STEPS = 16                  # [10c] rollout_steps, cut from 128
 
 
 def ensemble_draws(actor: str, cfg: ensemble.EnsembleConfig, params: EnvParams,
-                   gen: torch.Generator) -> list:
-    """Every draw of one [10] iteration on the CPU: the acting member's noise
-    (three for the blend), the env step's, and the replay rows and noise of
-    each update once the gate opens."""
+                   gen: torch.Generator, n: int = ENS_N, steps: int = ENS_STEPS) -> list:
+    """Every draw of one [10] iteration (n envs x steps) on the CPU: the
+    acting member's noise (three for the blend), the env step's, and the
+    replay rows and noise of each update once the gate opens."""
     gate = max(cfg.sac.learning_starts, cfg.sac.batch_size)
     cpu = torch.device("cpu")
     out = []
-    for t in range(ENS_STEPS):
-        size = (t + 1) * ENS_N
-        shape = (3, ENS_N, 2) if actor == "ensemble" else (ENS_N, 2)
+    for t in range(steps):
+        size = (t + 1) * n
+        shape = (3, n, 2) if actor == "ensemble" else (n, 2)
         step = StepDraws(n_act=torch.randn(shape, generator=gen),
-                         n_imu=torch.randn((ENS_N, 7), generator=gen),
-                         reset=rocket_env.draw_reset(params, ENS_N, cpu, gen))
+                         n_imu=torch.randn((n, 7), generator=gen),
+                         reset=rocket_env.draw_reset(params, n, cpu, gen))
         learn = size >= gate
         b_sac, b_td3 = cfg.sac.batch_size, cfg.td3.batch_size
         out.append(ensemble.EnsembleStepDraws(
@@ -1856,6 +1885,495 @@ def safety_card_vs_cpu(dev, n_obs: int) -> None:
         f"gradient: device {fwd_bwd_ms:.4f} ms, host {fwd_bwd_host_ms:.4f} ms per call: ok")
 
 
+# ---------------------------------------------------------------- 14. data parallel
+DP_WORLD = 2
+DP_N, DP_STEPS = 256, 16       # [14a] global envs (128 a rank), steps: two 8-step episodes
+DP_ENS_STEPS = 8               # [14a] ensemble steps (one episode)
+DP_PPO_EPOCHS = 2              # [14a] PPO epochs held card vs CPU
+DP_JOIN = 420                  # [14a], [14b] seconds the spawned ranks may take
+WARM_STEPS = 16                # [14b] a warm-up iteration's steps before the timed one
+AR_CALLS = 20                  # [14b] all-reduces timed
+TORCHRUN_STEPS = 32            # [14b] the torchrun run's rollout_steps, cut from 128
+DP_LEARNERS = ("agent.", "sac.", "td3.", "ppo.")
+DP_ENV = dict(randomization=RandomizationConfig(enabled=True, sensor_noise_enabled=True))
+
+
+def dp_check_configs():
+    """[14a]: [7]'s widths (256x256 nets, batch 256) at 256 envs (128 a rank)
+    in 8-step episodes; the gate opens at the fourth step, the 64-slot ring
+    overflows at the first episode end; the ensemble's gate at its second."""
+    params = EnvParams(**DP_ENV, max_episode_steps=8)
+    sac_cfg = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * DP_N,
+                                   learning_starts=4 * DP_N))
+    loop_cfg = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=DP_N, rollout_steps=DP_STEPS,
+                                           episode_ring_size=64))
+    ens_cfg = ensemble.EnsembleConfig(
+        sac=dataclasses.replace(sac_cfg, buffer_size=DP_N * DP_ENS_STEPS,
+                                learning_starts=2 * DP_N),
+        td3=td3.TD3Config(), ppo=ppo.PPOConfig(n_epochs=DP_PPO_EPOCHS))
+    return params, sac_cfg, loop_cfg, ens_cfg
+
+
+def cpu_flat(obj) -> dict:
+    """``flat_state(obj)`` with every tensor on the host."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in flat_state(obj).items()}
+
+
+def dp_check_rank(rank: int, dev, root: Path, side: str) -> None:
+    """[14a] on one rank: ``make_sharded_train`` for one iteration and
+    ``make_sharded_ensemble_train`` with sac and with ppo acting, each from
+    ``init_fn`` on the rank's draws (made on the CPU from the rank's seed, so
+    the card's rank and the CPU's rank of one index draw alike)."""
+    params, sac_cfg, loop_cfg, ens_cfg = dp_check_configs()
+    local_sac, local_loop = mesh.local_configs(sac_cfg, loop_cfg, DP_WORLD)
+    n = local_loop.num_envs
+    gen = torch.Generator().manual_seed(SEED + 40 + rank)
+    reset_draws, draws = learner_draws(params, n, DP_STEPS, local_sac, gen)
+    init_fn, train_fn = mesh.make_sharded_train(params, sac_cfg, loop_cfg, dev)
+    carry = init_fn(SEED, reset_draws=to_device(reset_draws, dev))
+    k1.step_kernel.launches = 0
+    carry, metrics = train_fn(carry, params, to_device(draws, dev))
+    out = {"loop": cpu_flat(dataclasses.replace(carry, generator=None)),
+           "loop_metrics": {k: v.cpu() for k, v in metrics.items()},
+           "launches": {"loop": k1.step_kernel.launches}}
+    local_ens, n_ens = mesh.local_ensemble_config(ens_cfg, DP_N, DP_WORLD)
+    init_e, train_fns = mesh.make_sharded_ensemble_train(params, ens_cfg, DP_N, DP_ENS_STEPS, 1,
+                                                         dev)
+    cpu = torch.device("cpu")
+    for actor in ("sac", "ppo"):
+        reset_draws = rocket_env.draw_reset(params, n_ens, cpu, gen)
+        e_draws = ensemble_draws(actor, local_ens, params, gen, n_ens, DP_ENS_STEPS)
+        perms = [torch.randperm(DP_ENS_STEPS * n_ens, generator=gen) for _ in range(DP_PPO_EPOCHS)]
+        carry = init_e(SEED, reset_draws=to_device(reset_draws, dev))
+        k1.step_kernel.launches = 0
+        carry, metrics = train_fns[actor](carry, ENS_WEIGHTS, params, to_device(e_draws, dev),
+                                          to_device(perms, dev) if actor == "ppo" else None)
+        out[f"ens_{actor}"] = cpu_flat(dataclasses.replace(carry, generator=None))
+        out[f"ens_{actor}_metrics"] = {k: v.cpu() for k, v in metrics.items()}
+        out["launches"][f"ens_{actor}"] = k1.step_kernel.launches
+    torch.save(out, root / f"{side}{rank}.pt")
+
+
+def full_configs():
+    """The default configuration as [8] builds it: 4096 envs x 128 steps,
+    256x256 nets, batch 256, a ~1M-row replay."""
+    params = EnvParams(**DP_ENV)
+    return (params, sac.SACConfig(**DEFAULT_SAC),
+            loop.TrainLoopConfig(**DEFAULT_LOOP, obs_dim=obs_dim(params)))
+
+
+def timed_iteration(carry, warm, train_fn, params, dev) -> tuple[object, dict]:
+    """A WARM_STEPS warm-up iteration (``warm``; none when None), then one
+    timed iteration of ``train_fn``: its seconds, updates, all-reduces and
+    K1 launches."""
+    if warm is not None:
+        carry, _ = warm(carry, params)
+    torch.cuda.synchronize(dev)
+    mesh.barrier()
+    mesh.counts["all_reduce"] = 0
+    k1.step_kernel.launches = 0
+    step0 = carry.agent.step
+    t0 = time.perf_counter()
+    carry, metrics = train_fn(carry, params)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    assert all(math.isfinite(float(v)) for v in metrics.values()), metrics
+    return carry, {"s": [secs], "updates": carry.agent.step - step0,
+                   "all_reduces": mesh.counts["all_reduce"],
+                   "launches": k1.step_kernel.launches}
+
+
+def dp_full_rank(rank: int, dev, root: Path, side: str) -> None:
+    """[14b] world 2 on one rank (gloo, both ranks on the one card): one
+    default-config iteration of the rank's 2048 envs, timed; then the wall
+    milliseconds of an all-reduce of the critic's gradient size."""
+    params, sac_cfg, loop_cfg = full_configs()
+    init_fn, train_fn = mesh.make_sharded_train(params, sac_cfg, loop_cfg, dev)
+    local_sac, local_loop = mesh.local_configs(sac_cfg, loop_cfg, DP_WORLD)
+    warm = loop.make_train_iteration(
+        local_sac, dataclasses.replace(local_loop, rollout_steps=WARM_STEPS), mesh.DATA_AXIS)
+    carry, out = timed_iteration(init_fn(SEED), warm, train_fn, params, dev)
+    grads = [torch.ones_like(p) for p in carry.agent.critic.parameters()]
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(AR_CALLS):
+        mesh.sum_grads_(grads, mesh.DATA_AXIS)
+    torch.cuda.synchronize(dev)
+    out["ar_ms"] = (time.perf_counter() - t0) / AR_CALLS * 1e3
+    out.update(envs=carry.obs.shape[0], steps=loop_cfg.rollout_steps,
+               global_envs=loop_cfg.num_envs)
+    torch.save(out, root / f"{side}{rank}.pt")
+
+
+def _dp_worker(index: int, job: str, root: str) -> None:
+    """A spawned rank: "check" runs [14a] (ranks 0-1 on the card, 2-3 on the
+    CPU, two gloo groups), "full" [14b]'s world 2 (both ranks on the card);
+    "nccl_check" and "nccl_full" run the same on NCCL, rank r on cuda:r
+    ([14c])."""
+    nccl = job.startswith("nccl")
+    side = "cuda" if job != "check" or index < DP_WORLD else "cpu"
+    rank = index % DP_WORLD
+    torch.set_num_threads(2)
+    dev = mesh.init_data_parallel(side, backend="nccl" if nccl else "gloo",
+                                  init_method=f"file://{root}/rv-{side}", rank=rank,
+                                  world_size=DP_WORLD, local_rank=rank if nccl else 0)
+    set_parity_precision()
+    run = dp_check_rank if job in ("check", "nccl_check") else dp_full_rank
+    run(rank, dev, Path(root), side)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(job: str, nprocs: int, root: Path) -> None:
+    """Spawn ``nprocs`` ranks of ``job`` and join them within DP_JOIN
+    seconds; a rank's exception or a hang fails the phase."""
+    root.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(_dp_worker, args=(job, str(root)),
+                                                nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_JOIN
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"[{job}] ranks did not finish in {DP_JOIN} s")
+
+
+def dp_bar(path: str, value):
+    """The card-vs-CPU bar of a ``flat_state`` path: None for exact, False
+    for not held (optimizer moments: the parameters are held)."""
+    if not isinstance(value, torch.Tensor) or not value.is_floating_point():
+        return None
+    if path.startswith(DP_LEARNERS):
+        return PARAMS if ("__module_state__" in path or path.endswith("log_alpha")) else False
+    if path.endswith(".done") or "ring_success" in path or "ring_length" in path:
+        return None
+    if any(k in path for k in ("reward", "return", "length_sum")):
+        return REWARD
+    return OBS
+
+
+FLIP_SHARE = 1e-4    # [14a]: the share of a tensor's elements an Adam sign flip may move
+MAX_ADAM_STEP = 3.2  # the most one Adam step moves an element, in learning rates
+MAX_LR = 3e-4        # the largest learning rate [14a]'s members use (alpha's)
+
+
+def adam_flips(got: torch.Tensor, want: torch.Tensor, updates: int, what: str):
+    """Hold a parameter card vs CPU at PARAMS, except for the few elements
+    (at most FLIP_SHARE of the tensor, at least one) where an Adam step
+    turned the other way: a ReLU unit active on one side and not on the
+    other, or a gradient within float32 rounding of zero, whose normalized
+    step then has the other sign. Those stay within the most the updates
+    could move them. Returns (elements beyond PARAMS, largest difference)."""
+    d = (got - want).abs()
+    over = int((d > PARAMS["atol"]).sum())
+    d_max = float(d.max()) if d.numel() else 0.0
+    bound = MAX_ADAM_STEP * MAX_LR * max(updates, 1)
+    assert over <= max(1, int(want.numel() * FLIP_SHARE)), (what, over, want.numel(), d_max)
+    assert d_max <= bound, (what, d_max, bound)
+    return over, d_max
+
+
+def dp_card_vs_cpu(scratch: Path) -> dict:
+    """[14a]: two gloo ranks on the card (K1) and two on the CPU (plain),
+    the same draws rank for rank: ``make_sharded_train`` for one iteration
+    and ``make_sharded_ensemble_train`` with sac and ppo acting. Holds each
+    rank's parameters card vs CPU (1e-4), its env shard, replay and
+    counters at the env bars, and on each side the replicas bit for bit
+    across the ranks. Returns the card ranks' K1 launches by path."""
+    root = scratch / "dp14a"
+    t0 = time.perf_counter()
+    run_ranks("check", 2 * DP_WORLD, root)
+    spawn_s = time.perf_counter() - t0
+    out = {(side, r): torch.load(root / f"{side}{r}.pt", weights_only=False)
+           for side in ("cuda", "cpu") for r in range(DP_WORLD)}
+    worst, flipped, elements = 0.0, {}, 0
+    for key in ("loop", "ens_sac", "ens_ppo"):
+        updates = max(v for p, v in out["cpu", 0][key].items() if p.endswith(".step")
+                      and isinstance(v, int))
+        for r in range(DP_WORLD):
+            a, b = out["cuda", r][key], out["cpu", r][key]
+            assert sorted(a) == sorted(b), key
+            for path, want in b.items():
+                bar = dp_bar(path, want)
+                if bar is False:
+                    continue
+                if bar is None:
+                    assert (torch.equal(a[path], want) if isinstance(want, torch.Tensor)
+                            else a[path] == want), (key, r, path)
+                elif path.startswith(DP_LEARNERS):
+                    n_over, d_max = adam_flips(a[path], want, updates, f"{key} rank {r} {path}")
+                    worst = max(worst, d_max)
+                    elements += want.numel()
+                    if n_over:
+                        flipped[f"{key} rank {r} {path}"] = (n_over, want.numel(), d_max)
+                else:
+                    torch.testing.assert_close(a[path], want, **bar,
+                                               msg=lambda m: f"{key} rank {r} {path}: {m}")
+            for k, v in out["cpu", r][f"{key}_metrics"].items():
+                torch.testing.assert_close(out["cuda", r][f"{key}_metrics"][k], v, **METRICS,
+                                           msg=f"{key} metric {k}")
+        for side in ("cuda", "cpu"):
+            a, b = out[side, 0][key], out[side, 1][key]
+            for path in a:
+                if path.startswith(DP_LEARNERS) and isinstance(a[path], torch.Tensor):
+                    assert torch.equal(a[path], b[path]), (side, key, path)
+            assert not torch.equal(a["env_states.body.pos"], b["env_states.body.pos"]), key
+    loop_ = out["cuda", 0]["loop"]
+    launches = {key: [out["cuda", r]["launches"][key] for r in range(DP_WORLD)]
+                for key in ("loop", "ens_sac", "ens_ppo")}
+    assert launches["loop"] == [DP_STEPS] * DP_WORLD, launches
+    assert all(out["cpu", r]["launches"][k] == 0 for r in range(DP_WORLD)
+               for k in launches), "the CPU ranks launched K1"
+    log(f"[14a] data parallel card vs CPU, world {DP_WORLD} on gloo (both card ranks on cuda:0; "
+        f"{DP_N} envs, {DP_N // DP_WORLD} a rank, 8-step episodes): make_sharded_train "
+        f"{DP_STEPS} steps ({loop_['agent.step']} updates, "
+        f"{int(loop_['episodes'].sum())} episode ends on rank 0, ring of 64 overflowed), "
+        f"make_sharded_ensemble_train {DP_ENS_STEPS} steps with sac and with ppo acting "
+        f"({DP_PPO_EPOCHS} PPO epochs); each rank card vs CPU: max |d param| {worst:.3e}; "
+        f"{sum(v[0] for v in flipped.values())} of {elements} parameter elements beyond "
+        f"atol {PARAMS['atol']} (an Adam step turned the other way; at most {FLIP_SHARE:g} of "
+        f"a tensor, each within {MAX_ADAM_STEP} x {MAX_LR:g} x its updates): {flipped}; env "
+        f"shards, obs, replay rows and counters at the env bars; "
+        f"replicas bit for bit equal across the ranks on the card and on the CPU: ok; K1 "
+        f"launches per card rank {launches}; 4 spawned ranks in {spawn_s:.1f} s")
+    return {k: sum(v) for k, v in launches.items()}
+
+
+def dp_nccl_world2(scratch: Path) -> dict:
+    """[14c]: NCCL at world 2 where the host has two GPUs (else it says so
+    and returns nothing): [14a]'s sharded loop and ensemble on rank 0 at
+    cuda:0 and rank 1 at cuda:1, against [14a]'s gloo ranks on the card on
+    the same draws (parameters as [14a] holds them, the rest at the env
+    bars; bit-equal tensors counted: two ranks' sums round alike on either
+    backend), then [14b]'s default iteration at world 2 on NCCL, timed.
+    Returns the K1 launches of each run."""
+    gpus = torch.cuda.device_count()
+    if gpus < DP_WORLD:
+        log(f"[14c] NCCL at world {DP_WORLD} is not checked: this host has {gpus} GPU(s) and "
+            f"NCCL needs one per rank")
+        return {}
+    run_ranks("nccl_check", DP_WORLD, scratch / "dp14c")
+    equal = total = 0
+    worst = 0.0
+    for r in range(DP_WORLD):
+        got = torch.load(scratch / "dp14c" / f"cuda{r}.pt", weights_only=False)
+        want = torch.load(scratch / "dp14a" / f"cuda{r}.pt", weights_only=False)
+        for key in ("loop", "ens_sac", "ens_ppo"):
+            a, b = got[key], want[key]
+            updates = max(v for p, v in b.items() if p.endswith(".step") and isinstance(v, int))
+            for path, ref in b.items():
+                bar = dp_bar(path, ref)
+                if not isinstance(ref, torch.Tensor) or bar is False:
+                    continue
+                total += 1
+                equal += torch.equal(a[path], ref)
+                if bar is None:
+                    assert torch.equal(a[path], ref), (key, r, path)
+                elif path.startswith(DP_LEARNERS):
+                    worst = max(worst, adam_flips(a[path], ref, updates, f"{key} {r} {path}")[1])
+                else:
+                    torch.testing.assert_close(a[path], ref, **bar,
+                                               msg=lambda m: f"{key} rank {r} {path}: {m}")
+    launches = {f"nccl_{k}": sum(torch.load(scratch / "dp14c" / f"cuda{r}.pt",
+                                            weights_only=False)["launches"][k]
+                                 for r in range(DP_WORLD)) for k in ("loop", "ens_sac", "ens_ppo")}
+    log(f"[14c] NCCL at world {DP_WORLD} (rank r on cuda:r) against [14a]'s gloo ranks on the "
+        f"card, the same draws: max |d param| {worst:.3e}, {equal} of {total} held tensors bit "
+        f"for bit equal; the rest at the env bars: ok; K1 launches {launches}")
+    run_ranks("nccl_full", DP_WORLD, scratch / "dp14c_full")
+    ranks = [torch.load(scratch / "dp14c_full" / f"cuda{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    secs, steps = max(r["s"][0] for r in ranks), ranks[0]["steps"]
+    log(f"[14c] world {DP_WORLD} on NCCL, default config: {ranks[0]['envs']} envs a rank x "
+        f"{steps} steps, {secs:.4f} s per iteration = "
+        f"{ranks[0]['global_envs'] * steps / secs:.1f} env steps/s (all ranks), "
+        f"{ranks[0]['updates']} updates a rank, "
+        f"{ranks[0]['all_reduces'] / max(ranks[0]['updates'], 1):.3f} all-reduces per update; "
+        f"{ranks[0]['ar_ms']:.4f} ms of wall per all-reduce of the critic's gradient; K1 "
+        f"launches {sum(r['launches'] for r in ranks)}")
+    launches["nccl_full"] = sum(r["launches"] for r in ranks)
+    return launches
+
+
+def dp_full_width(scratch: Path, dev) -> dict:
+    """[14b]: one default-config iteration three ways, in turns A B C B A:
+    unsharded, ``make_sharded_train`` at world 1 on NCCL (this process),
+    world 2 on gloo (two spawned ranks on the one card); then ``torchrun
+    --nproc-per-node 1 -m tvc_ai_torch.train`` for one 32-step iteration.
+    Returns the K1 launches of each way's first timed iteration."""
+    params, sac_cfg, loop_cfg = full_configs()
+    n, steps = loop_cfg.num_envs, loop_cfg.rollout_steps
+    warm_loop = dataclasses.replace(loop_cfg, rollout_steps=WARM_STEPS)
+    rows = {}
+    # A: unsharded
+    plain_fn = loop.make_train_iteration(sac_cfg, loop_cfg)
+    plain, rows["unsharded"] = timed_iteration(
+        loop.init_carry(params, sac_cfg, loop_cfg, dev, seed=SEED),
+        loop.make_train_iteration(sac_cfg, warm_loop), plain_fn, params, dev)
+    # B: world 1 on NCCL
+    mesh.init_data_parallel(dev, backend="nccl", init_method=f"file://{scratch}/rv-nccl",
+                            rank=0, world_size=1, local_rank=dev.index)
+    assert torch.distributed.get_backend() == "nccl"
+    init_fn, nccl_fn = mesh.make_sharded_train(params, sac_cfg, loop_cfg, dev)
+    sharded, rows["world 1 NCCL"] = timed_iteration(
+        init_fn(SEED), loop.make_train_iteration(sac_cfg, warm_loop, mesh.DATA_AXIS), nccl_fn,
+        params, dev)
+    grads = [torch.ones_like(p) for p in sharded.agent.critic.parameters()]
+    rows["world 1 NCCL"]["ar_device_ms"] = device_ms(
+        lambda: mesh.sum_grads_(grads, mesh.DATA_AXIS), reps=30, inner=20)
+    rows["world 1 NCCL"]["ar_host_us"] = host_us(lambda: mesh.sum_grads_(grads, mesh.DATA_AXIS))
+    grad_mb = sum(g.numel() * 4 for g in grads) / 1e6
+    # C: world 2 on gloo, both ranks on the card
+    root = scratch / "dp14b"
+    run_ranks("full", DP_WORLD, root)
+    ranks = [torch.load(root / f"cuda{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    rows["world 2 gloo"] = dict(ranks[0], s=[max(r["s"][0] for r in ranks)],
+                                launches=sum(r["launches"] for r in ranks))
+    # B, A again
+    sharded, again = timed_iteration(sharded, None, nccl_fn, params, dev)
+    rows["world 1 NCCL"]["s"] += again["s"]
+    torch.distributed.destroy_process_group()
+    plain, again = timed_iteration(plain, None, plain_fn, params, dev)
+    rows["unsharded"]["s"] += again["s"]
+    rows["unsharded"]["envs"] = rows["world 1 NCCL"]["envs"] = n
+    del plain, sharded
+    gc.collect()
+    for name, row in rows.items():
+        per_update = row["all_reduces"] / max(row["updates"], 1)
+        ar = (f"device {row['ar_device_ms']:.4f} ms, host {row['ar_host_us']:.1f} us per "
+              f"all-reduce of the critic's gradient ({grad_mb:.3f} MB)" if "ar_device_ms" in row
+              else f"{row['ar_ms']:.4f} ms of wall per all-reduce of the critic's gradient "
+                   f"(staged through the host)" if "ar_ms" in row else "no all-reduce")
+        log(f"[14b] {name}: {row['envs']} envs a rank x {steps} steps, "
+            + ", ".join(f"{t:.4f}" for t in row["s"]) + " s per iteration = "
+            + ", ".join(f"{n * steps / t:.1f}" for t in row["s"])
+            + f" env steps/s (all ranks), {row['updates']} updates a rank, {per_update:.3f} "
+              f"all-reduces per update; {ar}; K1 launches {row['launches']}")
+    assert rows["unsharded"]["all_reduces"] == 0
+    assert rows["unsharded"]["launches"] == rows["world 1 NCCL"]["launches"] == steps
+    assert rows["world 2 gloo"]["launches"] == DP_WORLD * steps
+    # the CLI under torchrun at world 1: one 32-step iteration
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+           "-m", "tvc_ai_torch.train", "--output-dir", str(scratch / "torchrun"),
+           f"training.total_timesteps={n * TORCHRUN_STEPS}",
+           f"training.rollout_steps={TORCHRUN_STEPS}", "logging.tensorboard=false"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+    final = json.loads((scratch / "torchrun" / "final_metrics.json").read_text())
+    assert final["env_steps"] == n * TORCHRUN_STEPS and final["iterations"] == 1, final
+    log(f"[14b] torchrun --standalone --nproc-per-node 1 -m tvc_ai_torch.train (default config, "
+        f"rollout_steps {TORCHRUN_STEPS}): exit 0 in {time.perf_counter() - t0:.1f} s, 1 "
+        f"iteration, {final['env_steps']} env steps, "
+        f"{[l for l in proc.stdout.splitlines() if l.startswith('final:')][-1]}")
+    return {name: row["launches"] for name, row in rows.items()}
+
+
+# ---------------------------------------------------------------- 15. demonstration seeding
+DEMO_N, DEMO_STEPS = 64, 32    # [15a] card vs CPU
+R4_YAML = "robust_r4.yaml"
+R4_ROLLOUT = 16                # [15b] rollout_steps, cut from 128
+
+
+def r4_config():
+    return load_config(default_config_path().parent / R4_YAML,
+                       [f"training.rollout_steps={R4_ROLLOUT}", "logging.tensorboard=false"])
+
+
+def demos_card_vs_cpu(dev) -> float:
+    """[15a]: ``design_lqr`` on the host CPU, timed; then
+    ``generate_demonstrations`` at 64 envs x 32 steps in ``robust_r4.yaml``'s
+    demo env through K1 on the card against the plain route on the CPU, on
+    the same draws: obs 5e-5 / 5e-4, reward 1e-3, done exact."""
+    params = demo_env_params(r4_config())
+    t0 = time.perf_counter()
+    design = demos.design_lqr(params)
+    design_s = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    reset_draws = rocket_env.draw_reset(params, DEMO_N, cpu, gen)
+    step_draws = [StepDraws(n_imu=torch.randn((DEMO_N, 7), generator=gen),
+                            reset=rocket_env.draw_reset(params, DEMO_N, cpu, gen))
+                  for _ in range(DEMO_STEPS)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        k1.step_kernel.launches = 0
+        out[where] = demos.generate_demonstrations(
+            params, design, DEMO_N, DEMO_STEPS, device=where,
+            reset_draws=to_device(reset_draws, where), step_draws=to_device(step_draws, where))
+        out[where + "_launches"] = k1.step_kernel.launches
+    (a, a_stats), (b, b_stats) = out["cuda"], out["cpu"]
+    assert out["cuda_launches"] == DEMO_STEPS and out["cpu_launches"] == 0, out
+    for k in ("obs", "next_obs", "action"):
+        torch.testing.assert_close(a[k].cpu(), b[k], **OBS, msg=k)
+    torch.testing.assert_close(a["reward"].cpu(), b["reward"], **REWARD)
+    assert torch.equal(a["done"].cpu(), b["done"]), "terminations differ"
+    assert a_stats == b_stats, (a_stats, b_stats)
+    err = float((a["obs"].cpu() - b["obs"]).abs().max())
+    log(f"[15a] design_lqr on the host CPU: {design_s:.3f} s; gains {np.round(design.gain, 4)}, "
+        f"z_eq {float(design.z_eq):.5f}, trim slope {float(design.trim_slope):.5f}")
+    log(f"[15a] generate_demonstrations {DEMO_N} envs x {DEMO_STEPS} steps ({R4_YAML}'s demo env: "
+        f"cg <= {params.randomization.cg_offset_max}, nominal starts, sensor noise, drift obs "
+        f"{obs_dim(params)} wide), card (K1) vs CPU (plain): max |d obs| {err:.3e} (atol "
+        f"{OBS['atol']}, rtol {OBS['rtol']}), rewards at {REWARD['atol']}, terminations equal "
+        f"({int(b_stats['demo_episodes'])} episodes, success "
+        f"{b_stats['demo_success_rate']:.3f}); K1 launches {out['cuda_launches']}: ok")
+    return err
+
+
+def run_robust_r4(scratch: Path, dev) -> dict:
+    """[15b]: ``Trainer`` on ``robust_r4.yaml`` at its widths (512 envs, 16
+    updates of batch 1024 per step, drift obs, demo seeding of 512 envs x
+    600 steps with a 25 % demo fraction and BC 2.5) with ``rollout_steps``
+    cut from 128 to 16, two iterations and the final eval."""
+    cfg = r4_config()
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = 2 * n * R4_ROLLOUT
+    ds = cfg.training.demo_seeding
+    k1.step_kernel.launches = 0
+    tr = Trainer(cfg, output_dir=scratch / "robust_r4", device=dev)
+    demo_launches = k1.step_kernel.launches
+    assert demo_launches == ds.steps, (demo_launches, ds.steps)
+    evals: list = []
+    counting_evals(tr, evals)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches = k1.step_kernel.launches
+    iters = result["iterations"]
+    assert iters == 2 and result["env_steps"] == 2 * n * R4_ROLLOUT, result
+    assert launches == iters * R4_ROLLOUT + sum(k for k, _, _ in evals), (launches, evals)
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    train_s = result["stage_timing"]["train_iteration"]["total_sec"]
+    per = cfg.training.updates_per_step
+    buf, demo = tr.carry.buffer, tr.carry.demo_buffer
+    assert demo.size == demo.capacity == ds.steps * ds.envs and tr.loop_cfg.demo_fraction == 0.25
+
+    def mb(b):
+        return sum(t.numel() * t.element_size() for t in b.data.values()) / 1e6
+
+    stats = tr.demo_stats
+    log(f"[15b] {R4_YAML} ({n} envs, SAC batch {tr.sac_cfg.batch_size} with "
+        f"{int(round(tr.sac_cfg.batch_size * tr.loop_cfg.demo_fraction))} demo rows, BC weight "
+        f"{tr.sac_cfg.bc_weight}, {per} updates per step, obs {tr.loop_cfg.obs_dim} with drift; "
+        f"rollout_steps cut from 128 to {R4_ROLLOUT}, a depth cut): demo seeding "
+        f"{tr.demo_seconds:.3f} s for {ds.envs} envs x {ds.steps} steps "
+        f"({int(stats['demo_transitions'])} transitions, {int(stats['demo_episodes'])} "
+        f"episodes, success {stats['demo_success_rate']:.4f}; the LQR design cached from "
+        f"[15a]), K1 launches {demo_launches}; replay {buf.size} of {buf.capacity} rows "
+        f"({mb(buf):.1f} MB), demo buffer {demo.size} rows ({mb(demo):.1f} MB)")
+    log(f"[15b] {iters} iterations: {result['stage_timing']['train_iteration']['mean_sec']:.4f} s "
+        f"per iteration, {tr.carry.agent.step} updates in {train_s:.4f} s = "
+        f"{tr.carry.agent.step / train_s:.1f} updates/s; K1 launches {launches} == {iters} x "
+        f"{R4_ROLLOUT} + {launches - iters * R4_ROLLOUT} eval steps; final eval: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items())
+                    if k.endswith(("success_rate", "reward_mean"))))
+    tr.logger.close()
+    return {"robust_r4_demos": demo_launches, "robust_r4": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
@@ -2394,6 +2912,24 @@ def main() -> int:
         ensemble_launches["population"] = run_population(dev, env_params)
         phase("[13c]")
         safety_card_vs_cpu(dev, n_obs)
+
+        # ---- 14. data parallel: card vs CPU at world 2 on gloo; the default
+        # configuration unsharded, at world 1 on NCCL and at world 2 on gloo
+        phase("[14a]")
+        ensemble_launches.update(
+            {f"dp_{k}": v for k, v in dp_card_vs_cpu(scratch).items()})
+        phase("[14b]")
+        ensemble_launches.update(
+            {f"dp_full_{k.replace(' ', '_')}": v for k, v in dp_full_width(scratch, dev).items()})
+        phase("[14c]")
+        ensemble_launches.update(dp_nccl_world2(scratch))
+
+        # ---- 15. LQR demonstration seeding: card vs CPU; robust_r4.yaml
+        phase("[15a]")
+        demos_card_vs_cpu(dev)
+        ensemble_launches["demos_card_vs_cpu"] = DEMO_STEPS
+        phase("[15b]")
+        ensemble_launches.update(run_robust_r4(scratch, dev))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

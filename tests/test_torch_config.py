@@ -282,12 +282,13 @@ def test_build_ensemble_config_as_in_jax(name):
         assert not port.sac.automatic_entropy_tuning
 
 
-# the YAMLs of the robust-training runs the port runs (the other two robust
-# runs also need training.demo_seeding or training.warm_start_actor)
+# the YAMLs of the robust-training runs the port runs (robust_r4.yaml with
+# training.demo_seeding; robust_student_ft_r5.yaml also needs
+# training.warm_start_actor)
 ROBUST_YAMLS = ["curriculum_showcase.yaml", "probe_cg.yaml", "robust_full_r4d.yaml",
                 "robust_noncg_r4.yaml", "robust_noncg_r4b.yaml", "robust_noncg_r4c.yaml",
                 "robust_r3.yaml", "robust_r3b.yaml", "robust_r3c.yaml", "robust_r3d.yaml",
-                "robust_r3e.yaml"]
+                "robust_r3e.yaml", "robust_r4.yaml"]
 
 
 @pytest.mark.parametrize("name", ROBUST_YAMLS)

@@ -18,8 +18,6 @@ checkpoint. The PPO and blended actors' iterations are in
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,19 +27,16 @@ import torch
 from test_torch_parity_utils import (
     KeyChain,
     assert_state_close,
+    ensemble_draws,
     np_tree,
     permutations,
     record_env_keys,
-    sample_idx,
-    to_torch,
-    update_draws,
 )
 from tvc_ai_torch.agents import ensemble as t_ens
 from tvc_ai_torch.agents import ppo as t_ppo
 from tvc_ai_torch.agents import sac as t_sac
 from tvc_ai_torch.agents import td3 as t_td3
 from tvc_ai_torch.convert import env_params_from_numpy, ensemble_carry_from_numpy
-from tvc_ai_torch.training.loop import SampleDraws, StepDraws
 from tvc_ai_torch.utils.checkpoint import diff_states
 from tvc_ai_tpu.agents import ensemble as j_ens
 from tvc_ai_tpu.agents import ppo as j_ppo
@@ -73,40 +68,6 @@ def configs(**ens_kw):
     return j_cfg, t_cfg
 
 
-def ensemble_draws(chain: KeyChain, key, env_keys, sizes, actor: str, cfg) -> tuple[list, object]:
-    """Every draw of one JAX ``make_ensemble_iteration`` call, from the
-    carry's key, the envs' keys before each step and the replay's size after
-    each step's write; and the carry's key after the rollout."""
-    gate = max(cfg.sac.learning_starts, cfg.sac.batch_size)
-    b_sac, b_td3 = cfg.sac.batch_size, cfg.td3.batch_size
-    out = []
-    for t in range(STEPS):
-        k_act, _, k_u1, _, k_u2, _ = jax.random.split(key, 6)
-        (key,) = jax.random.split(key, 1)
-        if actor == "ensemble":
-            n_act = torch.stack([to_torch(jax.random.normal(k, (N, ACT)))
-                                 for k in jax.random.split(k_act, 3)])
-        else:
-            n_act = to_torch(jax.random.normal(k_act, (N, ACT)))
-        sac_draws, td3_draws = [], []
-        if sizes[t] >= gate:
-            k = k_u1
-            for _ in range(UPDATES):
-                k_s, k_u, k = jax.random.split(k, 3)
-                sac_draws.append(SampleDraws(idx=sample_idx(k_s, b_sac, sizes[t]),
-                                             update=update_draws(k_u, b_sac, ACT)))
-            k = k_u2
-            for _ in range(UPDATES):
-                k_s, k_u, k = jax.random.split(k, 3)
-                td3_draws.append(t_ens.TD3Draws(
-                    idx=sample_idx(k_s, b_td3, sizes[t]),
-                    noise=to_torch(jax.random.normal(k_u, (b_td3, ACT)))))
-        out.append(t_ens.EnsembleStepDraws(step=dataclasses.replace(chain.step(env_keys[t]),
-                                                                    n_act=n_act),
-                                           sac=sac_draws, td3=td3_draws))
-    return out, key
-
-
 def make_run(actor: str, params: EnvParams = JAX_PARAMS) -> dict:
     """One iteration of ``actor`` on both sides from the same carry and draws."""
     j_cfg, t_cfg = configs()
@@ -121,7 +82,8 @@ def make_run(actor: str, params: EnvParams = JAX_PARAMS) -> dict:
     assert env_keys.shape[0] == STEPS
     cap = int(carry0.buffer.capacity)
     sizes = [min((t + 1) * N, cap) for t in range(STEPS)]
-    draws, key = ensemble_draws(KeyChain(params), carry0.key, env_keys, sizes, actor, t_cfg)
+    draws, key = ensemble_draws(KeyChain(params), carry0.key, env_keys, sizes, actor, t_cfg, N,
+                                STEPS, UPDATES)
     perms = (permutations(key, STEPS * N, t_cfg.ppo.n_epochs) if actor == "ppo" else None)
     t_it = t_ens.make_ensemble_iteration(actor, t_cfg, N, STEPS, UPDATES)
     t_carry, t_metrics = t_it(t_carry0, WEIGHTS, env_params_from_numpy(params), draws, perms)
@@ -202,8 +164,6 @@ def test_iteration_from_the_generator_and_options():
     assert all(torch.isfinite(v) for v in metrics.values())
     with pytest.raises(ValueError, match="acting algorithm"):
         t_ens.make_ensemble_iteration("a2c", cfg, N, STEPS)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        t_ens.make_ensemble_iteration("sac", cfg, N, STEPS, axis_name="data")
     with pytest.raises(ValueError, match="draws"):
         t_ens.make_ensemble_iteration("sac", cfg, N, STEPS)(carry, WEIGHTS, params, [])
 

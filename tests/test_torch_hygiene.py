@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,7 +31,7 @@ from tvc_ai_torch.models import hierarchical, rnd
 from tvc_ai_torch.models.safety import SafetyCorrectionNet
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.train import main as train_main
-from tvc_ai_torch.training import loop, population
+from tvc_ai_torch.training import demos, loop, population
 from tvc_ai_torch.training.trainer import Trainer
 from tvc_ai_torch.training.trainer_ensemble import EnsembleTrainer
 
@@ -65,7 +66,7 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
-            *EXPORT_MODULES} <= set(MODULES)
+            *EXPORT_MODULES, *PARALLEL_DEMO_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -79,9 +80,12 @@ EXPORT_MODULES = ["tvc_ai_torch.agents.legacy", "tvc_ai_torch.export",
                   "tvc_ai_torch.export.__main__", "tvc_ai_torch.export.c_array",
                   "tvc_ai_torch.export.micro", "tvc_ai_torch.export.tflite",
                   "tvc_ai_torch.models.safety", "tvc_ai_torch.training.population"]
+# data parallel and demonstration seeding
+PARALLEL_DEMO_MODULES = ["tvc_ai_torch.parallel", "tvc_ai_torch.parallel.mesh",
+                         "tvc_ai_torch.training.demos"]
 
 
-@pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES)
+@pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -141,7 +145,8 @@ ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_cr
                 "init_carry", "sac_state_from_numpy", "trainer", "run_suite", "run_all_suites",
                 "td3_init", "ppo_init", "ensemble_init_carry", "ensemble_agent",
                 "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init",
-                "sac_agent", "init_population", "safety_net", "load_agent_file"]
+                "sac_agent", "init_population", "safety_net", "load_agent_file",
+                "generate_demonstrations"]
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
 TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
         "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
@@ -192,6 +197,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         )[1].obs,
         "safety_net": lambda: next(SafetyCorrectionNet().parameters()),
         "load_agent_file": lambda: load_agent_state(agent_file(), 10, 2, small).log_alpha,
+        "generate_demonstrations": lambda: demos.generate_demonstrations(
+            EnvParams(), ANY_DESIGN, 2, 1)[0]["obs"],
     }
 
     def agent_file():
@@ -355,7 +362,7 @@ def test_port_reads_no_yaml_of_the_jax_package():
         "    build.build_loop_config(cfg)\n"
         "loader.load_config(None)\n"
         "assert opened and all(p.startswith(str(root)) for p in opened), opened\n"
-        "assert len(names) == 15, names\n"
+        "assert len(names) == 16, names\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -445,6 +452,39 @@ def test_extension_paths_reach_physics_only_through_k1(monkeypatch):
     make_hier_eval_fn(small, loop_cfg.hierarchical, 3, history_len=2, check_every=10**9)(
         (carry.agent, carry.hier), torch.Generator().manual_seed(0), params)
     assert calls == ["cpu"] * (3 + 3)
+
+
+# an LQR design for the path tests (any gains: these tests time no control)
+ANY_DESIGN = demos.LQRDesign(gain=np.full(6, 0.1, np.float32), gain_pitch=np.full(6, 0.1, np.float32),
+                             z_eq=np.float32(0.5), trim_slope=np.float32(-1.8),
+                             trim_slope_pitch=np.float32(1.8))
+
+
+def test_demo_path_reaches_physics_only_through_k1(monkeypatch):
+    """The demonstration rollout integrates through K1's wrapper, never the
+    plain integrator (the LQR design's own step map is the plain one, on the
+    CPU, by design)."""
+    from tvc_ai_torch.env.types import RandomizationConfig
+    from tvc_ai_torch.physics import integrator
+
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(args[0].pos.device.type)
+        return integrator.step(*args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the demo rollout called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    params = EnvParams(randomization=RandomizationConfig(enabled=True, sensor_noise_enabled=True),
+                       max_episode_steps=3, drift_obs_enabled=True)
+    trans, stats = demos.generate_demonstrations(params, ANY_DESIGN, 4, 5, history_len=2,
+                                                 device="cpu",
+                                                 generator=torch.Generator().manual_seed(0))
+    assert calls == ["cpu"] * 5 and trans["obs"].shape == (5, 4, 28)
+    assert stats["demo_episodes"] >= 4
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -29,7 +29,14 @@ consumes, so both packages can be fed the same numbers:
 - PPO epochs: each splits the key into (key, k_perm, k_up) and permutes the
   T·N rows with permutation(k_perm, T·N);
 - where a JAX iteration vmaps ``rocket_env.step_autoreset`` itself (PPO,
-  the ensemble), ``record_env_keys`` records the env keys it receives.
+  the ensemble), ``record_env_keys`` records the env keys it receives;
+- data parallel (``shard_map`` over the ``data`` axis): each step folds the
+  rank into the carry's key, ``fold_in(key, r)``, and splits the draws from
+  that, while the carry's key moves on by ``split(key, 1)[0]`` on every rank
+  alike (``iteration_draws`` and ``ensemble_draws`` with ``rank``; the
+  ensemble's chain moves so without ranks too);
+  ``record_env_keys_sharded`` records each rank's env keys, and ``shard_of``
+  takes rank r's part of a sharded JAX tree.
 """
 
 from __future__ import annotations
@@ -160,17 +167,29 @@ def sample_idx(key, n: int, size: int) -> torch.Tensor:
     return to_torch(idx).to(torch.int64)
 
 
+def rank_keys(key, rank: int | None, parts: int):
+    """(the step's ``parts`` keys, the carry's next key): ``split(key,
+    parts)`` and its last part without data parallelism; ``split(fold_in(key,
+    rank), parts)`` and ``split(key, 1)[0]`` for rank ``rank``."""
+    if rank is None:
+        keys = jax.random.split(key, parts)
+        return keys, keys[-1]
+    return jax.random.split(jax.random.fold_in(key, rank), parts), jax.random.split(key, 1)[0]
+
+
 def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
-                    demo_size: int = 0) -> list[IterDraws]:
+                    demo_size: int = 0, rank: int | None = None) -> list[IterDraws]:
     """Every draw of one JAX ``make_train_iteration`` call, from the carry's
     key, the envs' keys before each step (T, N, 2) and the buffer's size after
-    each step's write. Steps that take no update get no ``SampleDraws``."""
+    each step's write. Steps that take no update get no ``SampleDraws``.
+    ``rank`` replays data-parallel rank ``rank``'s draws (``loop_cfg`` and
+    ``sac_cfg`` are then the rank's local configs)."""
     n, a, b = loop_cfg.num_envs, loop_cfg.action_dim, sac_cfg.batch_size
     n_demo = int(round(b * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
     every = max(loop_cfg.update_interval, 1)
     out = []
     for t in range(loop_cfg.rollout_steps):
-        k_act, _, k_update, key = jax.random.split(key, 4)
+        (k_act, _, k_update, _), key = rank_keys(key, rank, 4)
         step = dataclasses.replace(chain.step(env_keys[t]),
                                    n_act=to_torch(jax.random.normal(k_act, (n, a))))
         if loop_cfg.use_hierarchical:
@@ -189,6 +208,46 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
                 ))
         out.append(IterDraws(step=step, samples=samples))
     return out
+
+
+def ensemble_draws(chain: KeyChain, key, env_keys, sizes, actor: str, cfg, n: int, steps: int,
+                   updates: int, rank: int | None = None) -> tuple[list, object]:
+    """Every draw of one JAX ``make_ensemble_iteration`` call of ``n`` envs
+    and ``steps`` steps (for data-parallel rank ``rank``), from the carry's
+    key, the envs' keys before each step and the replay's size after each
+    step's write; and the carry's key after the rollout (PPO's epochs draw
+    from it, alike on every rank)."""
+    from tvc_ai_torch.agents.ensemble import EnsembleStepDraws, TD3Draws
+
+    gate = max(cfg.sac.learning_starts, cfg.sac.batch_size)
+    b_sac, b_td3, act = cfg.sac.batch_size, cfg.td3.batch_size, 2
+    out = []
+    for t in range(steps):
+        # the ensemble's chain moves on by split(key, 1) with or without ranks
+        step_key = key if rank is None else jax.random.fold_in(key, rank)
+        k_act, _, k_u1, _, k_u2, _ = jax.random.split(step_key, 6)
+        (key,) = jax.random.split(key, 1)
+        if actor == "ensemble":
+            n_act = torch.stack([to_torch(jax.random.normal(k, (n, act)))
+                                 for k in jax.random.split(k_act, 3)])
+        else:
+            n_act = to_torch(jax.random.normal(k_act, (n, act)))
+        sac_draws, td3_draws = [], []
+        if sizes[t] >= gate:
+            k = k_u1
+            for _ in range(updates):
+                k_s, k_u, k = jax.random.split(k, 3)
+                sac_draws.append(SampleDraws(idx=sample_idx(k_s, b_sac, sizes[t]),
+                                             update=update_draws(k_u, b_sac, act)))
+            k = k_u2
+            for _ in range(updates):
+                k_s, k_u, k = jax.random.split(k, 3)
+                td3_draws.append(TD3Draws(idx=sample_idx(k_s, b_td3, sizes[t]),
+                                          noise=to_torch(jax.random.normal(k_u, (b_td3, act)))))
+        out.append(EnsembleStepDraws(step=dataclasses.replace(chain.step(env_keys[t]),
+                                                              n_act=n_act),
+                                     sac=sac_draws, td3=td3_draws))
+    return out, key
 
 
 def permutations(key, rows: int, epochs: int) -> list[torch.Tensor]:
@@ -437,3 +496,64 @@ def test_step_replayed_draws_match_jax(case):
     assert bool(t_out.truncated.all())
     np.testing.assert_allclose(t_next.numpy(), np.asarray(j_next), atol=5e-6, rtol=5e-6)
     assert_state_close(t_state, j_state, atol=5e-6, rtol=5e-6, what=case)
+
+
+DATA_AXIS = "data"
+
+
+def shard_of(tree, rank: int):
+    """Rank ``rank``'s part of a JAX tree laid out over a mesh, as numpy: a
+    sharded leaf's slice, a replicated leaf whole; other leaves as they are."""
+    return jax.tree.map(
+        lambda x: np.asarray(x.addressable_shards[rank].data) if isinstance(x, jax.Array) else x,
+        tree)
+
+
+def record_env_keys_sharded(fn, world: int, vmapped: bool):
+    """Run ``fn()`` (which must build or first call its JAX program inside)
+    with the env keys each rank's step receives recorded; returns (fn's
+    result, {rank: keys (steps, n, 2)}). ``vmapped``: the program vmaps
+    ``rocket_env.step_autoreset`` (PPO, the ensemble), whose keys arrive one
+    batch per step through a ``custom_vmap`` tap; otherwise it calls
+    ``batched_step_autoreset`` on the whole batch. A trace outside the mesh
+    (an abstract twin) records nothing."""
+    from jax import custom_batching
+
+    keys = {r: [] for r in range(world)}
+
+    def store(k, r):
+        keys[int(r)].append(np.asarray(k))
+
+    @custom_batching.custom_vmap
+    def tap(k, r):
+        jax.debug.callback(lambda k, r: store(np.asarray(k)[None], r), k, r)
+        return k
+
+    @tap.def_vmap
+    def _tap_batched(axis_size, in_batched, k, r):
+        jax.debug.callback(store, k, r)
+        return k, in_batched[0]
+
+    def axis_index():
+        try:
+            return jax.lax.axis_index(DATA_AXIS)
+        except NameError:   # traced outside shard_map
+            return None
+
+    name = "step_autoreset" if vmapped else "batched_step_autoreset"
+    original = getattr(j_env, name)
+
+    def recording(states, *args, **kw):
+        r = axis_index()
+        if r is not None:
+            if vmapped:
+                tap(states.key, r)
+            else:
+                jax.debug.callback(store, states.key, r)
+        return original(states, *args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_env, name, recording)
+        out = fn()
+        jax.effects_barrier()
+    return out, {r: np.stack(v) for r, v in keys.items()}

@@ -269,5 +269,3 @@ def test_make_train_iteration_matches_jax():
     assert float(j_m["success_rate"]) >= 0.0 and int(t_env_out.step_count.min()) >= 0
     with pytest.raises(ValueError, match="draws"):
         it(t_out, t_env_out, t_obs, None, env_params_from_numpy(JAX_PARAMS), draws[:2])
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        t_ppo.make_train_iteration(cfg_t, N, T, OBS, ACT, axis_name="data")

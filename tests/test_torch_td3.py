@@ -144,5 +144,6 @@ def test_update_draws_from_generator_and_options():
     assert state.step == 2 and all(torch.isfinite(v) and v.shape == () for v in metrics.values())
     assert all(p.grad is None for p in state.actor.parameters())  # autograd.grad only
     assert not any(p.requires_grad for p in state.target_actor.parameters())
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    # data parallel needs a process group (tests/test_torch_parallel.py has one)
+    with pytest.raises(RuntimeError, match="process group"):
         t_td3.update(state, batch, cfg, axis_name="data")

@@ -215,8 +215,8 @@ def test_iteration_options():
     base = t_loop.TrainLoopConfig(num_envs=8, rollout_steps=2)
     with pytest.raises(NotImplementedError, match="hoist_bookkeeping"):
         t_loop.make_train_iteration(cfg, dataclasses.replace(base, hoist_bookkeeping=True))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        t_loop.make_train_iteration(cfg, base, axis_name="data")
+    with pytest.raises(ValueError, match="axis_name"):
+        t_loop.make_train_iteration(cfg, base, axis_name="model")
     with pytest.raises(ValueError, match="multiple"):
         t_loop.make_train_iteration(cfg, dataclasses.replace(base, update_interval=3))
     # use_pallas_physics=False on CPU tensors: the same batched step, whose

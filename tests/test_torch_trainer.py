@@ -456,10 +456,19 @@ def test_robust_metric_requires_robust_eval(tmp_path):
 
 @pytest.mark.parametrize("option", ["warm_start", "demo_seeding"])
 def test_unported_trainer_options_raise(tmp_path, option):
-    extra = {"warm_start": ["training.warm_start_actor=student.msgpack"],
-             "demo_seeding": ["training.demo_seeding.enabled=true"]}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
-        Trainer(tiny_cfg(tmp_path, extra=extra), output_dir=tmp_path / "x", device="cpu")
+    """warm_start_actor still raises; demo_seeding is ported and seeds the
+    replay (its parity is in tests/test_torch_demos.py)."""
+    if option == "warm_start":
+        with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
+            Trainer(tiny_cfg(tmp_path, extra=["training.warm_start_actor=student.msgpack"]),
+                    output_dir=tmp_path / "x", device="cpu")
+        return
+    extra = ["training.demo_seeding.enabled=true", "training.demo_seeding.envs=8",
+             "training.demo_seeding.steps=4"]
+    t = Trainer(tiny_cfg(tmp_path, extra=extra), output_dir=tmp_path / "x", device="cpu")
+    assert t.carry.buffer.size == 8 * 4 and t.carry.demo_buffer is None  # fraction 0
+    assert t.demo_stats["demo_transitions"] == 32.0
+    t.logger.close()
 
 
 @pytest.mark.parametrize("algo", ["ensemble", "ppo", "td3"])

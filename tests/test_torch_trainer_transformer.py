@@ -10,8 +10,9 @@ high-level states, the goals and ``env_steps_host`` included) and both
 generators back bit for bit, and one more iteration from there equals two
 straight (LR schedule off). The hierarchical trainer evaluates through
 ``make_hier_eval_fn`` and its dormant-unit check probes the actor with the
-goal-augmented view. ``python -m tvc_ai_torch.train --device cpu`` trains
-``transformer_r3.yaml`` in a subprocess.
+goal-augmented view; demonstration seeding is refused in hierarchical mode
+and runs beside the other extensions. ``python -m tvc_ai_torch.train
+--device cpu`` trains ``transformer_r3.yaml`` in a subprocess.
 """
 
 from __future__ import annotations
@@ -139,9 +140,16 @@ def test_hierarchical_refuses_demo_seeding(tmp_path):
     cfg.training.demo_seeding.enabled = True
     with pytest.raises(ValueError, match="hierarchical"):
         Trainer(cfg, output_dir=tmp_path / "run", device="cpu")
+    # with hierarchical RL off the extensions' trainer seeds its replay
     cfg.hierarchical_rl.enabled = False
-    with pytest.raises(NotImplementedError, match="demo_seeding"):
-        Trainer(cfg, output_dir=tmp_path / "run2", device="cpu")
+    cfg.training.demo_seeding.envs = 8
+    cfg.training.demo_seeding.steps = 4
+    cfg.training.demo_seeding.fraction = 0.25
+    t = Trainer(cfg, output_dir=tmp_path / "run2", device="cpu")
+    assert t.carry.buffer.size == t.carry.demo_buffer.size == 8 * 4
+    assert torch.equal(t.carry.demo_buffer.data["obs"], t.carry.buffer.data["obs"][:32])
+    assert t.carry.icm is not None and t.carry.rnd is not None and t.carry.hier is None
+    t.logger.close()
 
 
 def test_train_entry_point_transformer_r3_on_cpu(tmp_path):

@@ -22,7 +22,10 @@ When PPO acted, its pre-tanh actions, log-probs and values feed
 ``ppo.learn`` (GAE and its epochs) after the last step.
 
 The gate is decided on host ints (the replay's ``size``), so an iteration
-makes no host-device synchronisation. Randomness is explicit: one
+makes no host-device synchronisation. With ``axis_name`` (data parallel,
+``parallel.mesh``) every member's gradients are all-reduced over the ranks
+(``mesh.sum_grads_``), and each step's metrics (one all-reduce) and the PPO
+phase's metrics are averaged; each rank draws from its own generator. Randomness is explicit: one
 ``EnsembleStepDraws`` per step and one permutation per PPO epoch, or the
 carry's generator.
 
@@ -54,6 +57,7 @@ from tvc_ai_torch.agents.replay import ReplayBuffer
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.rocket_env import ResetDraws
 from tvc_ai_torch.env.types import ACTION_DIM, OBS_DIM, EnvParams, EnvState
+from tvc_ai_torch.parallel.mesh import pmean_
 from tvc_ai_torch.training.loop import SampleDraws, StepDraws
 from tvc_ai_torch.utils.checkpoint import load_state, state_of
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
@@ -163,12 +167,15 @@ def init_carry(
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
     reset_draws: ResetDraws | None = None,
+    stream_seed: int | None = None,
 ) -> EnsembleCarry:
     """Reset N envs, initialize the three members, allocate the shared
     replay (capacity ``sac.buffer_size`` rounded down to a multiple of N, at least
-    N) and zero the counters."""
+    N) and zero the counters. The members come from ``seed``; the carry's
+    generator, which draws the resets, from ``stream_seed`` (default
+    ``seed``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed if stream_seed is None else stream_seed)
     env_states, obs = rocket_env.reset(env_params, num_envs, dev, generator=gen, draws=reset_draws)
     example = {
         "obs": torch.zeros(OBS_DIM),
@@ -214,10 +221,7 @@ def make_ensemble_iteration(
     ``metrics`` holds 0-dim device tensors: the per-step means of
     ``STEP_METRICS`` (the update metrics are zeros, and α its value, on
     steps that did not learn) and, when PPO acted, its update means as
-    ``ppo_*``."""
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel ensemble training (axis_name) waits for "
-                                  "the data-parallel slice")
+    ``ppo_*``. With ``axis_name`` the metrics are averaged over the ranks."""
     if actor_algo not in ACTORS:
         raise ValueError(f"unknown acting algorithm {actor_algo!r}; want one of {ACTORS}")
     gate = max(cfg.sac.learning_starts, cfg.sac.batch_size)
@@ -233,12 +237,12 @@ def make_ensemble_iteration(
         for u in range(updates_per_step):
             s = d.sac[u] if d.sac else SampleDraws()
             batch = replay.sample(buffer, cfg.sac.batch_size, s.idx, gen)
-            _, m = sac_mod.update(carry.sac, batch, cfg.sac, s.update, gen)
+            _, m = sac_mod.update(carry.sac, batch, cfg.sac, s.update, gen, axis_name)
             sac_rows.append(torch.stack([m["critic_loss"], m["actor_loss"], m["alpha"]]))
         for u in range(updates_per_step):
             s = d.td3[u] if d.td3 else TD3Draws()
             batch = replay.sample(buffer, cfg.td3.batch_size, s.idx, gen)
-            _, m = td3_mod.update(carry.td3, batch, cfg.td3, s.noise, gen)
+            _, m = td3_mod.update(carry.td3, batch, cfg.td3, s.noise, gen, axis_name)
             td3_rows.append(torch.stack([m["critic_loss"], m["actor_loss"]]))
         if updates_per_step == 1:  # the mean of one: spare the launches
             return torch.cat([sac_rows[0], td3_rows[0]])
@@ -289,7 +293,11 @@ def make_ensemble_iteration(
             ep_return=torch.where(done, 0.0, ep_return),
             ep_length=torch.where(done, 0, ep_length),
         )
-        return new_carry, torch.cat([upd, out.reward.mean()[None]]), record
+        row = torch.cat([upd, out.reward.mean()[None]])
+        # the update means and reward_mean, averaged over the ranks in one
+        # all-reduce (α and the skipped updates' zeros are equal on every rank)
+        pmean_([row], axis_name)
+        return new_carry, row, record
 
     def iteration(carry: EnsembleCarry, weights, env_params: EnvParams,
                   draws: Sequence[EnsembleStepDraws] | None = None,
@@ -312,7 +320,8 @@ def make_ensemble_iteration(
             with torch.no_grad():
                 last_value = carry.ppo.value(carry.obs)
             _, ppo_metrics = ppo_mod.learn(carry.ppo, traj, last_value, cfg.ppo, perms,
-                                       carry.generator)
+                                           carry.generator, axis_name)
+            pmean_(ppo_metrics.values(), axis_name)
             metrics.update({f"ppo_{k}": v for k, v in ppo_metrics.items()})
         return carry, metrics
 

@@ -21,6 +21,12 @@ or drawn from ``generator``.
 act and ``rocket_env.batched_step_autoreset`` (K1 on the card), then
 ``learn``. Each step's draws are explicit (``loop.StepDraws``) or come from
 the generator, which stands in for the reference's key.
+
+With ``axis_name`` (data parallel, ``parallel.mesh``) each update's
+gradient is all-reduced over the ranks before the clip (summed, as the
+reference's is: ``mesh.sum_grads_``), and the iteration's metrics are
+averaged over the ranks at its end. Each rank
+permutes its own rows.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams, EnvState
 from tvc_ai_torch.models import distributions as dist
 from tvc_ai_torch.models.mlp import GaussianActor, ValueNetwork
+from tvc_ai_torch.parallel.mesh import pmean_, sum_grads_
 from tvc_ai_torch.training.loop import StepDraws
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
@@ -148,11 +155,8 @@ def update(
 ) -> tuple[PPOState, dict[str, torch.Tensor]]:
     """One clipped-surrogate gradient step on a minibatch with keys
     obs / pre_tanh / log_prob / advantage / return, in place on ``state``.
-    Returns ``state`` and a dict of 0-dim device tensors."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel PPO (axis_name) waits for the data-parallel slice"
-        )
+    Returns ``state`` and a dict of 0-dim device tensors (the rank's own
+    under ``axis_name``, which all-reduces the gradient)."""
     params = parameters(state)
     mean, log_std = state.actor(batch["obs"])
     logp = dist.log_prob(mean, log_std, batch["pre_tanh"])
@@ -166,7 +170,7 @@ def update(
     value_loss = torch.mean((state.value(batch["obs"]) - batch["return"]) ** 2)
     entropy = torch.mean(torch.sum(dist.clamp_log_std(log_std) + ENTROPY_OFFSET, dim=-1))
     total = policy_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
-    grads = torch.autograd.grad(total, params)
+    grads = sum_grads_(torch.autograd.grad(total, params), axis_name)
     with torch.no_grad():
         optim.adam_step(params, optim.clip_by_global_norm(grads, cfg.max_grad_norm), state.opt,
                         cfg.learning_rate)
@@ -190,13 +194,14 @@ def learn(
     cfg: PPOConfig,
     perms: Sequence[torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
+    axis_name: str | None = None,
 ) -> tuple[PPOState, dict[str, torch.Tensor]]:
     """GAE and ``n_epochs`` epochs of minibatch updates on a rollout.
 
     ``traj`` holds (T, N, ...) tensors obs / pre_tanh / log_prob / value /
     reward / done; ``perms`` one permutation of the T·N rows per epoch.
     The metrics are the mean over each epoch's minibatches, then over the
-    epochs.
+    epochs (the rank's own; ``axis_name`` reaches each update).
     """
     if perms is not None and len(perms) != cfg.n_epochs:
         raise ValueError(f"{len(perms)} permutations, want {cfg.n_epochs}")
@@ -218,7 +223,8 @@ def learn(
                 else torch.randperm(rows, device=advantages.device, generator=generator))
         idx = perm[: mb_size * n_mb].reshape(n_mb, mb_size)
         for i in range(n_mb):
-            state, m = update(state, {k: v.index_select(0, idx[i]) for k, v in flat.items()}, cfg)
+            state, m = update(state, {k: v.index_select(0, idx[i]) for k, v in flat.items()}, cfg,
+                              axis_name)
             per_update.append(torch.stack([m[k] for k in UPDATE_METRICS]))
     means = torch.stack(per_update).reshape(cfg.n_epochs, n_mb, -1).mean(dim=1).mean(dim=0)
     return state, dict(zip(UPDATE_METRICS, means.unbind()))
@@ -237,11 +243,8 @@ def make_train_iteration(
     ``rollout_steps`` on-policy steps of ``num_envs`` envs, then ``learn``.
     ``draws`` holds one ``StepDraws`` per step; ``metrics`` holds 0-dim
     device tensors (the update means, ``reward_mean`` and ``success_rate``
-    over the episodes that ended)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel PPO (axis_name) waits for the data-parallel slice"
-        )
+    over the episodes that ended; averaged over the ranks under
+    ``axis_name``)."""
 
     def train_iteration(state: PPOState, env_states: EnvState, obs: torch.Tensor,
                         generator: torch.Generator | None, env_params: EnvParams,
@@ -266,10 +269,11 @@ def make_train_iteration(
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         with torch.no_grad():
             last_value = state.value(obs)
-        state, metrics = learn(state, traj, last_value, cfg, perms, generator)
+        state, metrics = learn(state, traj, last_value, cfg, perms, generator, axis_name)
         metrics["reward_mean"] = traj["reward"].mean()
         metrics["success_rate"] = traj["success"].sum() / torch.clamp(traj["ended"].sum(),
                                                                       min=1).to(torch.float32)
+        pmean_(metrics.values(), axis_name)
         return state, env_states, obs, generator, metrics
 
     return train_iteration

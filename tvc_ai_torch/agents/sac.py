@@ -17,7 +17,11 @@ reference donating it) and keeps the reference's order exactly:
 - the EMA actor moves after the actor.
 
 Each gradient is taken with ``torch.autograd.grad``, so nothing accumulates
-in ``.grad``. The standard-normal draws of the target's and the actor
+in ``.grad``. With ``axis_name`` (data parallel, ``parallel.mesh``) the
+critic's, the actor's and α's gradients are each all-reduced over the ranks
+before their optimizer step, at the reference's three points, so the clip
+sees the gradient all ranks share: their sum, as in the reference
+(``mesh.sum_grads_`` says why); the returned metrics stay the rank's own. The standard-normal draws of the target's and the actor
 loss's actions are explicit (``UpdateDraws``) or come from ``generator``.
 ``step`` and the optimizer counts are host ints (they count updates), so an
 update makes no host-device synchronisation.
@@ -37,6 +41,7 @@ from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models import distributions as dist
 from tvc_ai_torch.models.mlp import GaussianActor, TwinQ
 from tvc_ai_torch.models.transformer import TransformerActor
+from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -228,12 +233,9 @@ def update(
     batch keys: obs, action, reward, next_obs, done (float 0/1, terminated
     only: truncation bootstraps), and optionally demo_mask (enables the BC
     term when ``cfg.bc_weight > 0``). Returns ``state`` and a dict of 0-dim
-    device tensors.
+    device tensors. ``axis_name`` all-reduces the three gradients over the
+    data-parallel ranks.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel SAC (axis_name) waits for the data-parallel slice"
-        )
     obs, action, next_obs = batch["obs"], batch["action"], batch["next_obs"]
     if draws is None:
         shape = (obs.shape[0], action.shape[-1])
@@ -254,7 +256,7 @@ def update(
         target_q = batch["reward"] * cfg.reward_scale + cfg.gamma * (1.0 - batch["done"]) * target_v
     q1, q2 = critic(obs, action)
     critic_loss = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
-    critic_grads = torch.autograd.grad(critic_loss, critic_params)
+    critic_grads = sum_grads_(torch.autograd.grad(critic_loss, critic_params), axis_name)
     with torch.no_grad():
         _clipped_adam(critic_params, critic_grads, state.critic_opt, cfg.lr_critic, cfg)
 
@@ -276,8 +278,8 @@ def update(
     # the transformer's value head and, over its one-token input, its query
     # and key projections take no part in the loss: zero gradients, as in
     # the reference, so that clipping and Adam see the whole tree
-    actor_grads = torch.autograd.grad(actor_loss, actor_params, allow_unused=True,
-                                      materialize_grads=True)
+    actor_grads = sum_grads_(torch.autograd.grad(actor_loss, actor_params, allow_unused=True,
+                                                materialize_grads=True), axis_name)
     with torch.no_grad():
         _clipped_adam(actor_params, actor_grads, state.actor_opt, cfg.lr_actor, cfg)
 
@@ -286,7 +288,7 @@ def update(
         target_entropy = cfg.resolved_target_entropy(action.shape[-1])
         log_alpha = state.log_alpha.detach().requires_grad_(True)
         alpha_loss = -torch.mean(torch.exp(log_alpha) * (logp.detach() + target_entropy))
-        (alpha_grad,) = torch.autograd.grad(alpha_loss, [log_alpha])
+        (alpha_grad,) = sum_grads_(torch.autograd.grad(alpha_loss, [log_alpha]), axis_name)
         with torch.no_grad():
             optim.adam_step([state.log_alpha], [alpha_grad], state.alpha_opt, cfg.lr_alpha)
     else:

@@ -16,6 +16,10 @@ gradient step **in place** on that state, in the reference's order:
 ``step`` and the optimizer counts are host ints, so the delay is decided on
 the host with no synchronisation. The smoothing noise is explicit
 (``noise``, a standard normal (B, action_dim)) or drawn from ``generator``.
+With ``axis_name`` (data parallel) the critic's and the actor's gradients
+are all-reduced over the ranks before the optimizer steps (summed, as the
+reference's are: ``mesh.sum_grads_``), and the reported actor loss is
+averaged in the same all-reduce.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from tvc_ai_torch.agents import optim
 from tvc_ai_torch.agents.sac import frozen_copy
 from tvc_ai_torch.models.mlp import DeterministicActor, TwinQ
+from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -121,10 +126,6 @@ def update(
     smoothing. Returns ``state`` and ``critic_loss`` / ``actor_loss`` as
     0-dim device tensors.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel TD3 (axis_name) waits for the data-parallel slice"
-        )
     obs, action, next_obs = batch["obs"], batch["action"], batch["next_obs"]
     if noise is None:
         noise = torch.randn(action.shape, device=obs.device, generator=generator)
@@ -139,7 +140,7 @@ def update(
         target_q = batch["reward"] + cfg.gamma * (1.0 - batch["done"]) * torch.minimum(tq1, tq2)
     q1, q2 = state.critic(obs, action)
     critic_loss = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
-    critic_grads = torch.autograd.grad(critic_loss, critic_params)
+    critic_grads = sum_grads_(torch.autograd.grad(critic_loss, critic_params), axis_name)
     with torch.no_grad():
         optim.adam_step(critic_params,
                         optim.clip_by_global_norm(critic_grads, cfg.gradient_clip_norm),
@@ -148,7 +149,10 @@ def update(
     # ---- delayed policy and target update, against the updated critic
     if (state.step + 1) % cfg.policy_delay == 0:
         actor_loss = -torch.mean(state.critic.q1(obs, state.actor(obs)))
-        actor_grads = torch.autograd.grad(actor_loss, actor_params)
+        # the reported loss rides the gradients' all-reduce (the reference
+        # pmeans it too)
+        *actor_grads, actor_loss = sum_grads_(
+            torch.autograd.grad(actor_loss, actor_params), axis_name, [actor_loss.detach()])
         with torch.no_grad():
             optim.adam_step(actor_params,
                             optim.clip_by_global_norm(actor_grads, cfg.gradient_clip_norm),
@@ -156,7 +160,6 @@ def update(
             tau = float(np.float32(cfg.tau))
             optim.polyak(state.target_actor.parameters(), actor_params, tau)
             optim.polyak(state.target_critic.parameters(), critic_params, tau)
-        actor_loss = actor_loss.detach()
     else:
         actor_loss = torch.zeros((), device=obs.device)
     state.step += 1

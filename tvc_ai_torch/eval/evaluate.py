@@ -255,7 +255,8 @@ def load_agent_state(
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> sac_mod.SACState:
     """The agent of a port checkpoint: a manager root (its latest step) or one
-    step directory, whose EMA actor is preferred when it has one; or a
+    step directory (of a single process or of a data-parallel run), whose EMA
+    actor is preferred when it has one; or a
     ``SACAgent.save`` file, restored whole. A flax msgpack file or an orbax
     checkpoint raises ``NotImplementedError``."""
     dev = resolve_device(device)
@@ -264,7 +265,9 @@ def load_agent_state(
     if path.is_file():
         return load_state(template, read_agent_file(path, dev)["state"])
     mngr, step = CheckpointManager.locate(path)
-    payload, _ = mngr.restore(step, dev)
+    # a data-parallel checkpoint's agent is replicated: rank 0's shard holds it
+    world = mngr.world_of(step)
+    payload, _ = mngr.restore(step, dev, rank=0, world=world)
     agent_state = payload["carry"]["agent"]
     ema = agent_state.get("ema_actor")
     load_state(template.actor, ema if ema is not None else agent_state["actor"])

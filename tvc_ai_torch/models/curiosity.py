@@ -23,6 +23,7 @@ from torch import nn
 
 from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models.layers import lecun_dense
+from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -96,10 +97,13 @@ def update(
     next_obs: torch.Tensor,
     cfg: CuriosityConfig,
     physics_loss_fn: Callable | None = None,
+    axis_name: str | None = None,
 ) -> tuple[CuriosityState, dict[str, torch.Tensor]]:
     """One joint forward + inverse Adam step, in place.
     ``physics_loss_fn(pred_next, obs, action)`` adds the physics-informed
-    penalty on the forward model's prediction."""
+    penalty on the forward model's prediction; ``axis_name`` all-reduces the
+    gradients over the data-parallel ranks (``mesh.sum_grads_``), so the
+    replicated ICM stays equal on every rank."""
     o, no = obs[..., : cfg.obs_dim], next_obs[..., : cfg.obs_dim]
     params = list(state.nets.parameters())
     pred_next, pred_action = state.nets(o, action, no)
@@ -111,7 +115,7 @@ def update(
         loss = loss + phys
     else:
         phys = torch.zeros((), device=obs.device)
-    grads = torch.autograd.grad(loss, params)
+    grads = sum_grads_(torch.autograd.grad(loss, params), axis_name)
     with torch.no_grad():
         optim.adam_step(params, grads, state.opt, cfg.lr)
     state.step += 1

@@ -36,6 +36,7 @@ from torch import nn
 from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models.layers import LayerNorm, gelu, lecun_dense
 from tvc_ai_torch.models.transformer import TransformerPolicyNetwork
+from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 GOALS = ("hover", "land", "recover", "maintain_altitude")
@@ -130,9 +131,14 @@ def update_high_masked(
     returns: torch.Tensor,    # (B,)
     mask: torch.Tensor,       # (B,) 1.0 = a valid episode
     cfg: HierarchicalConfig,
+    axis_name: str | None = None,
 ) -> tuple[HighLevelState, dict[str, torch.Tensor]]:
     """Masked REINFORCE step over a ring of finished episodes, in place;
-    nothing moves when ``mask`` is all zero (decided on the device)."""
+    nothing moves when ``mask`` is all zero (decided on the device). With
+    ``axis_name`` the gradients (``mesh.sum_grads_``), and the mean return,
+    the any-episode flag and the loss (averaged), are all-reduced over the
+    data-parallel ranks in one all-reduce, and nothing moves only when no
+    rank saw an episode."""
     params = list(state.policy.parameters())
     total = torch.sum(mask)
     denom = torch.clamp(total, min=1.0)
@@ -143,7 +149,11 @@ def update_high_masked(
     grads = torch.autograd.grad(loss, params)
     with torch.no_grad():
         mean_return = torch.sum(returns * mask) / denom
-        has_any = total > 0
+        loss = loss.detach()
+        any_frac = (total > 0).to(torch.float32)
+        *grads, mean_return, any_frac, loss = sum_grads_(
+            grads, axis_name, [mean_return, any_frac, loss])
+        has_any = any_frac > 0
         opt = state.opt
         mu = torch._foreach_add(torch._foreach_mul(opt.mu, optim.B1), grads, alpha=1.0 - optim.B1)
         nu = torch._foreach_mul(opt.nu, optim.B2)
@@ -167,7 +177,7 @@ def update_high_masked(
         state.baseline = torch.where(has_any, 0.9 * state.baseline + 0.1 * mean_return,
                                      state.baseline)
         state.step = state.step + has_any.to(torch.int32)
-    return state, {"high_level_loss": loss.detach(), "high_level_baseline": state.baseline}
+    return state, {"high_level_loss": loss, "high_level_baseline": state.baseline}
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from torch import nn
 
 from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models.layers import lecun_dense
+from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -102,9 +103,13 @@ def intrinsic_reward(state: RNDState, obs: torch.Tensor, cfg: RNDConfig) -> torc
     return torch.clamp(z, min=0.0) * cfg.reward_scale
 
 
-def update(state: RNDState, obs: torch.Tensor, cfg: RNDConfig, ema: float = 0.99
-           ) -> tuple[RNDState, dict[str, torch.Tensor]]:
-    """One predictor Adam step and the normalizer's EMA, in place."""
+def update(state: RNDState, obs: torch.Tensor, cfg: RNDConfig, ema: float = 0.99,
+           axis_name: str | None = None) -> tuple[RNDState, dict[str, torch.Tensor]]:
+    """One predictor Adam step and the normalizer's EMA, in place. With
+    ``axis_name`` the gradients (``mesh.sum_grads_``) and the batch's bonus
+    mean and variance (averaged) are all-reduced over the data-parallel ranks
+    in one all-reduce, so the replicated predictor and normalizer stay equal
+    on every rank."""
     sq = _squared_error(state, obs, cfg)
     loss = torch.mean(sq)
     params = list(state.predictor.parameters())
@@ -113,6 +118,7 @@ def update(state: RNDState, obs: torch.Tensor, cfg: RNDConfig, ema: float = 0.99
         err = torch.mean(sq, dim=-1)   # the bonus before the step
         batch_mean = torch.mean(err)
         batch_var = torch.var(err, correction=0)
+        *grads, batch_mean, batch_var = sum_grads_(grads, axis_name, [batch_mean, batch_var])
         optim.adam_step(params, grads, state.opt, cfg.lr)
         state.bonus_mean = ema * state.bonus_mean + (1 - ema) * batch_mean
         state.bonus_var = ema * state.bonus_var + (1 - ema) * batch_var

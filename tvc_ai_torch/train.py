@@ -12,6 +12,15 @@ on CUDA unless ``--device cpu`` is given. ``training.algorithm`` picks the
 trainer as the reference does: ``ensemble`` runs ``EnsembleTrainer``,
 ``ppo`` and ``td3`` run it with that member forced to act, anything else
 runs the fused SAC ``Trainer``.
+
+Data-parallel training is launched with ``torchrun``, one process per
+device:
+
+    torchrun --standalone --nproc-per-node N -m tvc_ai_torch.train --config ...
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu``
+on the CPU over gloo; ``hardware.mesh_devices`` is 0 (the launched world) or
+N. Rank 0 logs, writes the run directory's files and prints the result.
 """
 
 from __future__ import annotations
@@ -19,6 +28,9 @@ from __future__ import annotations
 import argparse
 import functools
 
+import torch
+
+from tvc_ai_torch.parallel import mesh
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
 
 
@@ -55,13 +67,18 @@ def main(argv: list[str] | None = None) -> int:
         cfg.logging.level = "DEBUG"
 
     trainer = Trainer(cfg, output_dir=args.output_dir, resume=args.resume, device=args.device)
-    save_config(cfg, trainer.output_dir / "config.yaml")
+    if mesh.rank() == 0:
+        save_config(cfg, trainer.output_dir / "config.yaml")
     result = trainer.train()
-    print(
-        f"final: success={result['eval_success_rate']:.2%} "
-        f"reward={result['eval_reward_mean']:.1f} "
-        f"steps/s={result['steps_per_sec']:,.0f}"
-    )
+    if mesh.rank() == 0:
+        print(
+            f"final: success={result['eval_success_rate']:.2%} "
+            f"reward={result['eval_reward_mean']:.1f} "
+            f"steps/s={result['steps_per_sec']:,.0f}"
+        )
+    if mesh.active():
+        mesh.barrier()
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -40,8 +40,17 @@ The extensions, each in the reference's place in the step:
 
 ICM, RND and goals run in the sim-only steps of ``update_interval > 1`` too.
 
-Not ported, raising ``NotImplementedError``: ``hoist_bookkeeping=True``,
-``use_pallas_physics=False`` on CUDA, and a non-None ``axis_name``.
+Data parallel (``axis_name``, ``parallel.mesh``): every learner's gradients
+are all-reduced over the ranks (SAC's three, the ICM's, RND's with its
+normalizer's batch statistics averaged, the high level's with its mean
+return, flag and loss averaged; ``mesh.sum_grads_``); each step's metrics are averaged over the ranks in one
+all-reduce (the update means where the step learned, ``reward_mean`` and
+``done_frac``); every draw comes from the rank's own generator (or the
+rank's ``IterDraws``). ``summarize`` then reports the global totals and
+``drain_episodes`` gathers every rank's ring.
+
+Not ported, raising ``NotImplementedError``: ``hoist_bookkeeping=True`` and
+``use_pallas_physics=False`` on CUDA.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from tvc_ai_torch.models import hierarchical as hier_mod
 from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.models.mlp import GaussianActor
 from tvc_ai_torch.models.safety import SafetyConstraints, apply_safety
+from tvc_ai_torch.parallel.mesh import DATA_AXIS, all_gather_host, pmean_, psum_host
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 UPDATE_METRICS = ("critic_loss", "actor_loss", "alpha_loss", "alpha", "q1_mean",
@@ -188,11 +198,12 @@ def _check_supported(loop_cfg: TrainLoopConfig, axis_name: str | None) -> None:
         raise NotImplementedError(
             "TrainLoopConfig.hoist_bookkeeping is not ported; it waits for a later slice "
             "(the reference's hoisted path, default off)")
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel training (axis_name) waits for its own slice")
+    if axis_name not in (None, DATA_AXIS):
+        raise ValueError(f"unknown axis_name {axis_name!r}; the port has one axis, {DATA_AXIS!r}")
 
 
-def _example(loop_cfg: TrainLoopConfig) -> dict[str, torch.Tensor]:
+def example_transition(loop_cfg: TrainLoopConfig) -> dict[str, torch.Tensor]:
+    """One replay row of zeros, no batch axis (the policy's view on both sides)."""
     dim = policy_obs_dim(loop_cfg)
     return {
         "obs": torch.zeros(dim),
@@ -210,14 +221,17 @@ def init_carry(
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
     reset_draws: ResetDraws | None = None,
+    stream_seed: int | None = None,
 ) -> TrainCarry:
     """Reset N envs, initialize the agent and the extensions that are on,
     allocate the replay (capacity ``buffer_size`` rounded down to a multiple
     of N, at least N) and zero the counters and the ring. With the
-    hierarchical option the first goals are drawn from the generator."""
+    hierarchical option the first goals are drawn from the generator. The
+    networks come from ``seed``; the carry's generator, which draws the
+    resets and the goals, from ``stream_seed`` (default ``seed``)."""
     dev = resolve_device(device)
     n = loop_cfg.num_envs
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed if stream_seed is None else stream_seed)
     env_states, obs = rocket_env.reset(env_params, n, dev, generator=gen, draws=reset_draws)
     obs_window = None
     if loop_cfg.history_len > 1:
@@ -225,7 +239,7 @@ def init_carry(
         obs = obs_window.reshape(n, -1)
     agent = sac.init(policy_obs_dim(loop_cfg), loop_cfg.action_dim, sac_cfg, dev, seed)
     capacity = max(sac_cfg.buffer_size - sac_cfg.buffer_size % n, n)
-    buffer = replay_mod.ReplayBuffer.create(capacity, _example(loop_cfg), dev)
+    buffer = replay_mod.ReplayBuffer.create(capacity, example_transition(loop_cfg), dev)
     k = loop_cfg.episode_ring_size
 
     def zeros(size: int, dtype: torch.dtype) -> torch.Tensor:
@@ -297,7 +311,8 @@ def make_train_iteration(
     With K > 1 each chunk is K − 1 sim-only steps and one learning step; the
     update metrics come from the learning step alone, ``reward_mean`` and
     ``done_frac`` average the whole chunk. ``metrics`` holds 0-dim device
-    tensors.
+    tensors. ``axis_name`` (``parallel.mesh.DATA_AXIS``) runs the iteration
+    as one rank of a data-parallel group.
     """
     _check_supported(loop_cfg, axis_name)
     k_int = loop_cfg.update_interval
@@ -350,7 +365,7 @@ def make_train_iteration(
                 batch["demo_mask"] = mask
             else:
                 batch = replay_mod.sample(buffer, batch_size, s.idx, generator)
-            agent, m = sac.update(agent, batch, sac_cfg, s.update, generator)
+            agent, m = sac.update(agent, batch, sac_cfg, s.update, generator, axis_name)
             per_update.append(m)
         if len(per_update) == 1:  # the mean of one: spare the launches
             return agent, per_update[0]
@@ -395,11 +410,11 @@ def make_train_iteration(
             reward = reward + icm_mod.intrinsic_reward(
                 carry.icm, cur_frame, actions, out.obs, loop_cfg.curiosity)
             icm_mod.update(carry.icm, cur_frame, actions, out.obs, loop_cfg.curiosity,
-                           physics_loss_fn=phys_fn)
+                           physics_loss_fn=phys_fn, axis_name=axis_name)
         if loop_cfg.use_rnd:
             reward = reward + rnd_mod.intrinsic_reward(carry.rnd, out.obs, loop_cfg.rnd)
             if carry.env_steps_host % loop_cfg.rnd.update_frequency == 0:
-                rnd_mod.update(carry.rnd, out.obs, loop_cfg.rnd)
+                rnd_mod.update(carry.rnd, out.obs, loop_cfg.rnd, axis_name=axis_name)
 
         # --- replay write (terminated-only done: truncation bootstraps);
         # hierarchical mode stores the goal-augmented views
@@ -416,7 +431,8 @@ def make_train_iteration(
         })
 
         # --- learn, gated on learning_starts (host ints: no sync)
-        if learn_now and buffer.size >= sac_cfg.learning_starts:
+        learned = learn_now and buffer.size >= sac_cfg.learning_starts
+        if learned:
             agent, upd_metrics = learn(carry.agent, buffer, carry.demo_buffer, d.samples, gen)
         else:
             agent, upd_metrics = carry.agent, no_update_metrics(carry.agent, zero)
@@ -473,6 +489,10 @@ def make_train_iteration(
         )
         step_metrics = dict(upd_metrics, reward_mean=out.reward.mean(),
                             done_frac=done.to(torch.float32).mean())
+        # one all-reduce per step: the update means where the step learned
+        # (a step that did not learn reports zeros and α, equal on every rank)
+        pmean_([step_metrics[k] for k in step_metrics
+                if learned or k in ("reward_mean", "done_frac")], axis_name)
         return new_carry, step_metrics
 
     def mean_over(rows: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -512,21 +532,25 @@ def make_train_iteration(
             mask = (carry.ep_ring_seq >= iter_start).to(torch.float32)
             _, hier_metrics = hier_mod.update_high_masked(
                 carry.hier, carry.ep_ring_goal_obs, carry.ep_ring_goal, carry.ep_ring_return,
-                mask, loop_cfg.hierarchical)
+                mask, loop_cfg.hierarchical, axis_name)
             metrics.update(hier_metrics)
         return carry, metrics
 
     return train_iteration
 
 
-def drain_episodes(carry: TrainCarry, last_seq: int) -> tuple[list[tuple[float, int, bool]], int]:
+def drain_episodes(carry: TrainCarry, last_seq: int, axis_name: str | None = None
+                   ) -> tuple[list[tuple[float, int, bool]], int]:
     """Finished episodes newer than ``last_seq`` from the ring, in completion
     order, as ``(return, length, success)``; and the newest ``seq``. Ring
-    overflow keeps only the most recent ``episode_ring_size``."""
-    rets = carry.ep_ring_return.cpu().numpy()
-    lens = carry.ep_ring_length.cpu().numpy()
-    succ = carry.ep_ring_success.cpu().numpy()
-    seq = carry.ep_ring_seq.cpu().numpy()
+    overflow keeps only the most recent ``episode_ring_size``. With
+    ``axis_name`` every rank's ring is gathered (rank by rank, as the
+    reference's host gather concatenates the shards), so every rank drains
+    the same episodes."""
+    rings = torch.stack([r.to(torch.float64) for r in (
+        carry.ep_ring_return, carry.ep_ring_length, carry.ep_ring_success, carry.ep_ring_seq)])
+    rets, lens, succ, seq = all_gather_host(rings[None], axis_name).transpose(0, 1).reshape(
+        4, -1).numpy()
     new = seq > last_seq
     if not new.any():
         return [], last_seq
@@ -538,15 +562,28 @@ def drain_episodes(carry: TrainCarry, last_seq: int) -> tuple[list[tuple[float, 
     return episodes, int(seq.max())
 
 
-def summarize(carry: TrainCarry) -> dict[str, Any]:
-    """Host-side snapshot of the counters."""
-    eps = max(int(carry.episodes.sum()), 1)
+COUNTERS = ("env_steps", "episodes", "successes", "return_sum", "length_sum")
+
+
+def counter_totals(carry: TrainCarry, axis_name: str | None = None) -> dict[str, float]:
+    """The sums of the per-env counters (over every rank with ``axis_name``):
+    one all-reduce, one read."""
+    return dict(zip(COUNTERS, psum_host([getattr(carry, k).sum() for k in COUNTERS],
+                                        axis_name)))
+
+
+def summarize(carry: TrainCarry, axis_name: str | None = None,
+              totals: dict[str, float] | None = None) -> dict[str, Any]:
+    """Host-side snapshot of the counters, global with ``axis_name``
+    (``totals`` from ``counter_totals`` spares the read)."""
+    t = counter_totals(carry, axis_name) if totals is None else totals
+    eps = max(int(t["episodes"]), 1)
     return {
-        "env_steps": int(carry.env_steps.sum()),
-        "episodes": int(carry.episodes.sum()),
-        "success_rate": float(carry.successes.sum()) / eps,
-        "mean_episode_return": float(carry.return_sum.sum()) / eps,
-        "mean_episode_length": float(carry.length_sum.sum()) / eps,
+        "env_steps": int(t["env_steps"]),
+        "episodes": int(t["episodes"]),
+        "success_rate": t["successes"] / eps,
+        "mean_episode_return": t["return_sum"] / eps,
+        "mean_episode_length": t["length_sum"] / eps,
         "buffer_size": carry.buffer.size,
     }
 

@@ -1,6 +1,7 @@
 """The training orchestrator — config in, trained policy out.
 
-Counterpart of ``tvc_ai_tpu/training/trainer.py::Trainer``, on one device:
+Counterpart of ``tvc_ai_tpu/training/trainer.py::Trainer``, on one device or
+data parallel over several processes (``parallel.mesh``):
 
 - the hot loop is ``training.loop.make_train_iteration`` (K1 for the physics
   on the card), one call per iteration;
@@ -31,11 +32,33 @@ The dormant-unit check probes the actor with what it sees: in hierarchical
 mode the goal-augmented observation (the reference probes with the bare
 observation, which does not fit an MLP actor's first layer there).
 
-Not ported, raising ``NotImplementedError`` with the module each waits for:
-more than one CUDA device with ``hardware.mesh_devices != 1`` (data
-parallel, ROADMAP module 9), ``training.warm_start_actor`` (it reads a flax
-msgpack) and ``training.demo_seeding`` (``training/demos.py``, module 12;
-with hierarchical RL on it is refused with the reference's ``ValueError``).
+``training.demo_seeding`` seeds the replay (and, with ``fraction > 0``, a
+persistent demo buffer) with LQR demonstrations (``training.demos``) on a
+fresh start; a resume restores both buffers.
+
+Data parallel. ``hardware.mesh_devices`` decides, by the reference's rule:
+0 runs at the world that was launched (``torchrun``; one process is world 1,
+with no group), 1 asks for a single process, N > 1 for exactly N. At a world
+above 1 each rank runs ``mesh.make_sharded_train``'s iteration on its shard
+(NCCL on CUDA, gloo on the CPU), and everything that decides replicated
+state or control flow is the same on every rank, or a rank would take
+another branch and hang in the next collective:
+
+- the counters are summed over the ranks (``loop.counter_totals``) and the
+  episode rings gathered (``loop.drain_episodes``), so the curriculum, the
+  hacking detector and the checkpoint cadence see the global run;
+- rank 0 evaluates, then broadcasts the eval metrics with the trainer
+  generator's state (``broadcast_object_list``); every rank applies the
+  same outcome (best and early-stopping logic, eval-driven promotion);
+- the trainer generator is seeded alike on every rank, so the primacy reset
+  draws alike; the dormant check probes with rank 0's observations;
+- rank 0 logs; every rank writes its shard of each checkpoint
+  (``utils.checkpoint``), and a resume needs the same world size.
+
+``training.demo_seeding`` and ``training.warm_start_actor`` are
+single-device, as in the reference (``ValueError`` at a world above 1).
+Not ported, raising ``NotImplementedError``: ``training.warm_start_actor``
+(it reads a flax msgpack).
 """
 
 from __future__ import annotations
@@ -47,10 +70,13 @@ from pathlib import Path
 
 import torch
 
+from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.config.build import build_env_params, build_loop_config, build_sac_config
 from tvc_ai_torch.config.schema import FrameworkConfig
 from tvc_ai_torch.eval.rollout import make_eval_fn, make_hier_eval_fn, summarize_stats
+from tvc_ai_torch.parallel import mesh
+from tvc_ai_torch.training import demos
 from tvc_ai_torch.training import loop as loop_mod
 from tvc_ai_torch.training.curriculum import CurriculumManager
 from tvc_ai_torch.training.hacking import RewardHackingDetector
@@ -61,25 +87,17 @@ from tvc_ai_torch.training.stability import (
 )
 from tvc_ai_torch.utils.checkpoint import CheckpointManager, load_state, save_json
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
-from tvc_ai_torch.utils.logging import TrainingLogger, make_output_dir
+from tvc_ai_torch.utils.logging import SilentLogger, TrainingLogger, make_output_dir
 from tvc_ai_torch.utils.profiling import StageTimer
 
 
-def check_single_device(cfg: FrameworkConfig, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` where the reference would train data
-    parallel over several devices (not ported yet)."""
-    if (device.type == "cuda" and torch.cuda.device_count() > 1
-            and cfg.hardware.mesh_devices != 1):
-        raise NotImplementedError(
-            "data-parallel training over several CUDA devices waits for "
-            "parallel/mesh.py (ROADMAP module 9); set hardware.mesh_devices=1"
-        )
-
-
-def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for the trainer options not ported yet."""
-    check_single_device(cfg, device)
+def check_supported(cfg: FrameworkConfig, world: int) -> None:
+    """Refuse the options this trainer does not run at ``world`` processes:
+    the reference's ``ValueError``s, and ``NotImplementedError`` for what is
+    not ported."""
     if cfg.training.warm_start_actor:
+        if world > 1:
+            raise ValueError("training.warm_start_actor is single-device for now")
         raise NotImplementedError(
             "training.warm_start_actor reads a flax msgpack student, which this "
             "package does not read (its distillation scripts wait for ROADMAP module 12)"
@@ -89,10 +107,35 @@ def check_supported(cfg: FrameworkConfig, device: torch.device) -> None:
             "training.demo_seeding does not support hierarchical mode "
             "(demos would need goal-augmented views)"
         )
-    if cfg.training.demo_seeding.enabled:
-        raise NotImplementedError(
-            "training.demo_seeding waits for training/demos.py (ROADMAP module 12)"
+    if cfg.training.demo_seeding.enabled and world > 1:
+        raise ValueError(
+            "training.demo_seeding is single-device for now (the sharded replay buffer "
+            "would need per-shard ring writes)"
         )
+
+
+def demo_env_params(cfg: FrameworkConfig):
+    """The env the demonstrations run in: the training env with the
+    ``training.demo_seeding`` overrides (those set) applied to its domain
+    randomization and initial conditions."""
+    ds = cfg.training.demo_seeding
+    demo_cfg = copy.deepcopy(cfg)
+    dr = demo_cfg.env.domain_randomization
+    for name in ("cg_offset_max", "mass_variation", "thrust_variation", "wind_max",
+                 "sensor_noise_std", "dr_prob", "init_tilt_max", "init_omega_max"):
+        v = getattr(ds, name)
+        if v is not None:
+            setattr(dr, name, v)
+    return build_env_params(demo_cfg)
+
+
+def agreed_output_dir(output_dir: str | Path | None, base: str, experiment: str) -> Path:
+    """``output_dir``, or a fresh timestamped run directory that rank 0 makes
+    and every rank of a data-parallel group then shares."""
+    if output_dir:
+        return Path(output_dir)
+    made = str(make_output_dir(base, experiment)) if mesh.rank() == 0 else None
+    return Path(mesh.broadcast_object(made))
 
 
 class Trainer:
@@ -103,14 +146,15 @@ class Trainer:
         resume: str | Path | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
     ):
-        self.device = resolve_device(device)
-        check_supported(cfg, self.device)
+        self.world = mesh.resolve_world(cfg.hardware.mesh_devices)
+        check_supported(cfg, self.world)
+        self.device = (mesh.init_data_parallel(device) if self.world > 1
+                       else resolve_device(device))
+        self.rank = mesh.rank()
+        self.axis = mesh.DATA_AXIS if self.world > 1 else None
         self.cfg = cfg
-        self.output_dir = (
-            Path(output_dir)
-            if output_dir
-            else make_output_dir(cfg.globals.output_dir, cfg.globals.experiment_name)
-        )
+        self.output_dir = agreed_output_dir(output_dir, cfg.globals.output_dir,
+                                            cfg.globals.experiment_name)
         self.logger = TrainingLogger(
             self.output_dir,
             level=cfg.logging.level,
@@ -119,7 +163,7 @@ class Trainer:
             wandb_enabled=cfg.logging.wandb_enabled,
             wandb_mode=cfg.logging.wandb_mode,
             wandb_config=cfg.to_dict(),
-        )
+        ) if self.rank == 0 else SilentLogger(self.output_dir)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.globals.seed)
 
         # ---- subsystems
@@ -191,7 +235,14 @@ class Trainer:
         self.stage_eval_env_params = self._build_stage_eval_params()
 
         # ---- the iteration and the evaluation
-        self._train_fn = loop_mod.make_train_iteration(self.sac_cfg, self.loop_cfg)
+        if self.world > 1:
+            init_fn, self._train_fn = mesh.make_sharded_train(
+                self.env_params, self.sac_cfg, self.loop_cfg, self.device)
+        else:
+            def init_fn(seed):
+                return loop_mod.init_carry(self.env_params, self.sac_cfg, self.loop_cfg,
+                                           self.device, seed=seed)
+            self._train_fn = loop_mod.make_train_iteration(self.sac_cfg, self.loop_cfg)
         if self.loop_cfg.use_hierarchical:
             self._eval_fn = make_hier_eval_fn(
                 self.sac_cfg, self.loop_cfg.hierarchical, cfg.training.eval_episodes,
@@ -201,14 +252,20 @@ class Trainer:
             self._eval_fn = make_eval_fn(
                 self.sac_cfg, cfg.training.eval_episodes, history_len=self.loop_cfg.history_len
             )
-        self.logger.info("single device: %s", self.device)
+        if self.world > 1:
+            self.logger.info("data parallel: %d ranks (%s), %d envs each", self.world,
+                             torch.distributed.get_backend(),
+                             self.loop_cfg.num_envs // self.world)
+        else:
+            self.logger.info("single device: %s", self.device)
 
         # ---- state
         self.timer = StageTimer()
-        self.carry = loop_mod.init_carry(
-            self.env_params, self.sac_cfg, self.loop_cfg, self.device, seed=self._next_seed()
-        )
+        self.carry = init_fn(self._next_seed())
         self.stability.register_initial_params(self.carry.agent.actor)
+        if cfg.training.demo_seeding.enabled:
+            # a resume restores both buffers into the structure made here
+            self._seed_demonstrations(generate=resume is None)
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         # best checkpoints live in their own managers so that pruning of the
         # periodic saves never evicts them
@@ -236,13 +293,65 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _seed_demonstrations(self, generate: bool = True) -> None:
+        """Seed the replay with LQR ground-balance demonstrations
+        (``training.demo_seeding``) before the first iteration, so the critic
+        sees the CG-trim skill's value landscape, the sparse completion bonus
+        included, from its first step; with ``fraction > 0`` also build the
+        persistent demo buffer the loop mixes into every batch. With
+        ``generate`` False (a resume) only the demo buffer's structure is
+        made, for the checkpoint to fill."""
+        ds = self.cfg.training.demo_seeding
+        n = ds.envs or self.loop_cfg.num_envs
+        if self.loop_cfg.num_envs % n != 0:
+            raise ValueError(
+                f"demo_seeding.envs ({n}) must divide training.num_envs "
+                f"({self.loop_cfg.num_envs}) so the replay ring's batch-write invariant holds"
+            )
+        total = ds.steps * n
+        if not generate:
+            if ds.fraction > 0:
+                self.carry.demo_buffer = replay_mod.ReplayBuffer.create(
+                    total, loop_mod.example_transition(self.loop_cfg), self.device)
+            return
+        demo_params = demo_env_params(self.cfg)
+        t0 = time.perf_counter()
+        design = demos.design_lqr(demo_params)
+        design_s = time.perf_counter() - t0
+        gen = torch.Generator(device=self.device).manual_seed(self._next_seed())
+        transitions, stats = demos.generate_demonstrations(
+            demo_params, design, n, ds.steps, privileged=ds.privileged,
+            history_len=self.loop_cfg.history_len, device=self.device, generator=gen)
+        if total > self.carry.buffer.capacity:
+            self.logger.info(
+                "demo seeding exceeds replay capacity (%d > %d): the ring keeps only the "
+                "most recent demos", total, self.carry.buffer.capacity)
+        self.carry.buffer = demos.seed_replay_buffer(self.carry.buffer, transitions)
+        if ds.fraction > 0:
+            # exactly sized, fully filled, never written again
+            example = {k: v[0, 0] for k, v in transitions.items()}
+            self.carry.demo_buffer = demos.seed_replay_buffer(
+                replay_mod.ReplayBuffer.create(total, example, self.device), transitions)
+        self.demo_seconds = time.perf_counter() - t0
+        self.logger.info(
+            "demo seeding: %d LQR transitions (%d episodes, %.1f%% success, cg_max %.3f) in "
+            "%.2f s (LQR design %.2f s)",
+            int(stats["demo_transitions"]), int(stats["demo_episodes"]),
+            100 * stats["demo_success_rate"], demo_params.randomization.cg_offset_max,
+            self.demo_seconds, design_s)
+        self.demo_stats = stats
+        self.logger.log_metrics(0, {f"demo/{k}": v for k, v in stats.items()})
+
     def _payload(self) -> dict:
         """What a checkpoint holds besides the host state."""
         return {"carry": self.carry, "generator": self.generator}
 
     def _save(self, mngr: CheckpointManager, step: int) -> None:
         with self.timer.stage("checkpoint"):
-            mngr.save(step, self._payload(), self._host_state())
+            if self.world > 1:
+                mngr.save(step, self._payload(), self._host_state(), self.rank, self.world)
+            else:
+                mngr.save(step, self._payload(), self._host_state())
 
     def _host_state(self) -> dict:
         return {
@@ -263,7 +372,7 @@ class Trainer:
         keeps the fresh carry's value. Tensor shapes follow the checkpoint
         (its env batch and replay capacity), not the new config."""
         mngr, step = CheckpointManager.locate(resume_dir)
-        state, host = mngr.restore(step, self.device)
+        state, host = mngr.restore(step, self.device, self.rank, self.world)
         self.carry = load_state(self.carry, state["carry"])
         if "generator" in state:
             load_state(self.generator, state["generator"])
@@ -300,6 +409,9 @@ class Trainer:
 
     @property
     def env_steps(self) -> int:
+        """Env steps taken by the whole run (every rank's envs)."""
+        if self.world > 1:   # every env slot has taken env_steps_host steps
+            return self.carry.env_steps_host * self.carry.obs.shape[0] * self.world
         return int(self.carry.env_steps.sum())
 
     # ------------------------------------------------------------------ train
@@ -326,13 +438,17 @@ class Trainer:
             self.logger.warning("interrupted — saving recovery checkpoint")
             self._save(self.ckpt, self.env_steps)
         except Exception:
+            if self.world > 1:
+                # the other ranks may never reach the save's barriers
+                self.logger.warning("error — a data-parallel run saves no recovery checkpoint")
+                raise
             self.logger.warning("error — saving recovery checkpoint")
             self._save(self.ckpt, self.env_steps)
             raise
 
         # ---- final artifacts
         elapsed = time.perf_counter() - t_start
-        final_eval = self.evaluate()
+        final_eval = self.evaluate_on_rank0()
         if cfg.checkpointing.save_last:
             self._save(self.ckpt, self.env_steps)
         result = {
@@ -351,8 +467,9 @@ class Trainer:
             "stage_timing": self.timer.report(),
             **final_eval,
         }
-        save_json(self.output_dir / "final_metrics.json", result)
-        self.curriculum.save_curriculum_data(self.output_dir / "curriculum.json")
+        if self.rank == 0:
+            save_json(self.output_dir / "final_metrics.json", result)
+            self.curriculum.save_curriculum_data(self.output_dir / "curriculum.json")
         self.logger.info("stage timing: %s", self.timer.summary_line())
         self.logger.info(
             "done: %s env steps in %.1fs (%s steps/s), final success %.2f%%",
@@ -375,10 +492,12 @@ class Trainer:
                 self.loop_cfg.rollout_steps * self.loop_cfg.updates_per_step
             )
 
-            # ---- the host's one read of the device this iteration
+            # ---- the host's one read of the device this iteration (the
+            # counters summed over the ranks under data parallelism)
             metrics = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
-            summary = loop_mod.summarize(self.carry)
-            successes = int(self.carry.successes.sum())
+            totals = loop_mod.counter_totals(self.carry, self.axis)
+            summary = loop_mod.summarize(self.carry, totals=totals)
+            successes = int(totals["successes"])
             metrics.update(summary)
             # per-episode success over this iteration's finished episodes
             # (summary["success_rate"] is the lifetime mean)
@@ -412,7 +531,7 @@ class Trainer:
                 )
             # the finished episodes, in completion order, feed the detector
             episodes, self._last_ep_seq = loop_mod.drain_episodes(
-                self.carry, self._last_ep_seq
+                self.carry, self._last_ep_seq, self.axis
             )
             for ret, length, success in episodes:
                 self.hacking.add_episode(reward=ret, success=success, length=length)
@@ -436,6 +555,8 @@ class Trainer:
                 probe = self.carry.obs[:256]
                 if self.loop_cfg.use_hierarchical:
                     probe = loop_mod.augment_with_goal(probe, self.carry.goal[:256], self.loop_cfg)
+                # every rank reinitializes from rank 0's probe
+                probe = mesh.broadcast_(probe.clone()) if self.world > 1 else probe
                 reinit_dormant_units(
                     self.carry.agent.actor,
                     probe,
@@ -447,7 +568,7 @@ class Trainer:
             # ---- eval / early stopping / checkpoints
             if self.iteration % eval_every == 0:
                 with self.timer.stage("evaluate"):
-                    eval_metrics = self.evaluate()
+                    eval_metrics = self.evaluate_on_rank0()
                 self.logger.log_metrics(env_steps, eval_metrics)
                 outcome = self._apply_eval_outcome(eval_metrics)
                 if outcome is not None:
@@ -604,6 +725,17 @@ class Trainer:
             self.cfg.training.eval_sensor_noise
         )
         return build_env_params(stage_cfg, stage)
+
+    def evaluate_on_rank0(self) -> dict[str, float]:
+        """``evaluate()``; under data parallelism on rank 0 alone, its
+        metrics and the trainer generator's state then broadcast, so every
+        rank applies the same outcome and draws alike afterwards."""
+        if self.world == 1:
+            return self.evaluate()
+        out = (self.evaluate(), self.generator.get_state()) if self.rank == 0 else None
+        metrics, gen_state = mesh.broadcast_object(out)
+        self.generator.set_state(gen_state)
+        return metrics
 
     def evaluate(self) -> dict[str, float]:
         # the EMA (Polyak) actor when enabled (sac.eval_actor_view)

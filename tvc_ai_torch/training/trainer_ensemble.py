@@ -21,8 +21,16 @@ stage of ``StageTimer`` after the device has finished. At the end it writes
 ``final_metrics.json`` and the members to ``ensemble_final.pt``
 (``MultiAlgorithmAgent.save_checkpoint``); ``resume`` reads such a file.
 
-Not ported, raising ``NotImplementedError``: more than one CUDA device with
-``hardware.mesh_devices != 1`` (data parallel, ROADMAP module 9).
+Data parallel, by the SAC trainer's rule on ``hardware.mesh_devices``
+(``training.trainer``): at a world above 1 each rank runs
+``mesh.make_sharded_ensemble_train``'s iterations on its shard, the counter
+sums of the one host read are summed over the ranks, and everything that
+picks the acting member is the same on every rank (the performance windows
+fed from the global counters, the selector's epsilon generator, which every
+rank draws from alike). Rank 0 evaluates the members and broadcasts their
+metrics with the trainer generator's state; every rank then runs the
+selector. Rank 0 logs and writes ``final_metrics.json`` and the members'
+checkpoint (replicated, so one file holds them).
 """
 
 from __future__ import annotations
@@ -40,12 +48,13 @@ from tvc_ai_torch.agents import td3 as td3_mod
 from tvc_ai_torch.config.build import build_env_params, build_sac_config
 from tvc_ai_torch.config.schema import FrameworkConfig
 from tvc_ai_torch.eval.rollout import make_policy_eval_fn, summarize_stats
+from tvc_ai_torch.parallel import mesh
 from tvc_ai_torch.training.curriculum import CurriculumManager
 from tvc_ai_torch.training.hacking import RewardHackingDetector
-from tvc_ai_torch.training.trainer import check_single_device
+from tvc_ai_torch.training.trainer import agreed_output_dir
 from tvc_ai_torch.utils.checkpoint import save_json
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
-from tvc_ai_torch.utils.logging import TrainingLogger, make_output_dir
+from tvc_ai_torch.utils.logging import SilentLogger, TrainingLogger
 from tvc_ai_torch.utils.profiling import StageTimer
 
 FINAL_CHECKPOINT = "ensemble_final.pt"
@@ -96,23 +105,22 @@ class EnsembleTrainer:
         forced_actor: str | None = None,
         device: str | torch.device = DEFAULT_DEVICE,
     ):
-        self.device = resolve_device(device)
-        check_single_device(cfg, self.device)
+        self.world = mesh.resolve_world(cfg.hardware.mesh_devices)
         if forced_actor not in (None, *ens.ACTORS):
             raise ValueError(f"forced_actor={forced_actor!r}; want one of {ens.ACTORS}")
         self.cfg = cfg
         self.forced_actor = forced_actor
         self.ens_cfg = build_ensemble_config(cfg)
-        self.output_dir = (
-            Path(output_dir)
-            if output_dir
-            else make_output_dir(cfg.globals.output_dir,
-                                 cfg.globals.experiment_name + "_ensemble")
-        )
+        self.device = (mesh.init_data_parallel(device) if self.world > 1
+                       else resolve_device(device))
+        self.rank = mesh.rank()
+        self.axis = mesh.DATA_AXIS if self.world > 1 else None
+        self.output_dir = agreed_output_dir(output_dir, cfg.globals.output_dir,
+                                            cfg.globals.experiment_name + "_ensemble")
         self.logger = TrainingLogger(
             self.output_dir, level=cfg.logging.level,
             tensorboard=cfg.logging.tensorboard, csv_enabled=cfg.logging.csv,
-        )
+        ) if self.rank == 0 else SilentLogger(self.output_dir)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.globals.seed)
         self.curriculum = CurriculumManager(cfg)
         self.hacking = RewardHackingDetector()
@@ -125,13 +133,18 @@ class EnsembleTrainer:
         self.eval_env_params = build_env_params(eval_cfg)
 
         n, t = cfg.training.num_envs, cfg.training.rollout_steps
-        self.carry = ens.init_carry(self.env_params, self.ens_cfg, n, self.device,
-                                    seed=self._next_seed())
-        self._iterations = {
-            actor: ens.make_ensemble_iteration(actor, self.ens_cfg, n, t,
-                                               cfg.training.updates_per_step)
-            for actor in ens.ACTORS
-        }
+        if self.world > 1:
+            init_fn, self._iterations = mesh.make_sharded_ensemble_train(
+                self.env_params, self.ens_cfg, n, t, cfg.training.updates_per_step, self.device)
+            self.carry = init_fn(self._next_seed())
+        else:
+            self.carry = ens.init_carry(self.env_params, self.ens_cfg, n, self.device,
+                                        seed=self._next_seed())
+            self._iterations = {
+                actor: ens.make_ensemble_iteration(actor, self.ens_cfg, n, t,
+                                                   cfg.training.updates_per_step)
+                for actor in ens.ACTORS
+            }
         self.agent.attach_carry(self.carry)
         episodes, td3_cfg = cfg.training.eval_episodes, self.ens_cfg.td3
         self._eval_fns = {
@@ -143,7 +156,11 @@ class EnsembleTrainer:
             "ppo": make_policy_eval_fn(
                 lambda s, o: ppo_mod.select_action(s.actor, o, deterministic=True), episodes),
         }
-        self.logger.info("single device: %s", self.device)
+        if self.world > 1:
+            self.logger.info("ensemble data parallel: %d ranks (%s)", self.world,
+                             torch.distributed.get_backend())
+        else:
+            self.logger.info("single device: %s", self.device)
         self.timer = StageTimer()
         self._last_episodes = 0
         self._last_successes = 0
@@ -160,7 +177,7 @@ class EnsembleTrainer:
 
     @property
     def env_steps(self) -> int:
-        return int(self.carry.env_steps.sum())
+        return int(mesh.psum_host([self.carry.env_steps.sum()], self.axis)[0])
 
     def train(self) -> dict:
         cfg = self.cfg.training
@@ -181,9 +198,9 @@ class EnsembleTrainer:
                 # the host's one read of the device this iteration
                 counters = (self.carry.env_steps, self.carry.episodes, self.carry.successes,
                             self.carry.return_sum)
-                *values, env_steps, episodes, successes, return_sum = torch.stack(
-                    [*(v.double() for v in metrics.values()),
-                     *(c.sum().double() for c in counters)]).tolist()
+                sums = mesh.psum_(torch.stack([c.sum().double() for c in counters]), self.axis)
+                *values, env_steps, episodes, successes, return_sum = torch.cat(
+                    [torch.stack([v.double() for v in metrics.values()]), sums]).tolist()
             self.agent.attach_carry(self.carry)
             self.iteration += 1
             env_steps, episodes, successes = int(env_steps), int(episodes), int(successes)
@@ -229,7 +246,9 @@ class EnsembleTrainer:
         with self.timer.stage("evaluate"):
             final_eval = self.evaluate()
         with self.timer.stage("checkpoint"):
-            self.agent.save_checkpoint(self.output_dir / FINAL_CHECKPOINT)
+            if self.rank == 0:
+                self.agent.save_checkpoint(self.output_dir / FINAL_CHECKPOINT)
+            mesh.barrier()
         result = {
             "env_steps": env_steps,
             "iterations": self.iteration,
@@ -239,25 +258,33 @@ class EnsembleTrainer:
             "stage_timing": self.timer.report(),
             **final_eval,
         }
-        save_json(self.output_dir / "final_metrics.json", result)
+        if self.rank == 0:
+            save_json(self.output_dir / "final_metrics.json", result)
         self.logger.info("stage timing: %s", self.timer.summary_line())
         self.logger.close()
         return result
 
     def evaluate(self) -> dict[str, float]:
         """Evaluate every member's deterministic policy (one rollout each);
-        the headline is the member the selector picks now."""
-        out: dict[str, float] = {}
+        the headline is the member the selector picks now. Under data
+        parallelism rank 0 runs the rollouts and broadcasts their metrics
+        with the trainer generator's state; every rank runs the selector."""
         # the SAC member evaluates its EMA (Polyak) actor when enabled
         members = {
             "sac": sac_mod.eval_actor_view(self.carry.sac, self.ens_cfg.sac),
             "td3": self.carry.td3,
             "ppo": self.carry.ppo,
         }
-        for name, state in members.items():
-            stats = self._eval_fns[name](state, self.generator, self.eval_env_params)
-            for k, v in summarize_stats(stats).items():
-                out[f"{name}_{k}"] = v
+        out: dict[str, float] = {}
+        if self.rank == 0:
+            for name, state in members.items():
+                stats = self._eval_fns[name](state, self.generator, self.eval_env_params)
+                for k, v in summarize_stats(stats).items():
+                    out[f"{name}_{k}"] = v
+        if self.world > 1:
+            out, gen_state = mesh.broadcast_object(
+                (out, self.generator.get_state()) if self.rank == 0 else None)
+            self.generator.set_state(gen_state)
         best = self.agent.select_algorithm()
         best = best if best in members else "sac"
         out["eval_success_rate"] = out[f"{best}_eval_success_rate"]

@@ -16,6 +16,13 @@ mid-save leaves no step directory behind. As with orbax: the newest
 Saving is synchronous (orbax saves in the background); the trainer times it
 under its ``"checkpoint"`` stage.
 
+Under data parallelism (``parallel.mesh``) each rank writes its own shard of
+the carry, ``<dir>/<step>/carry.rank{r}.pt``, and rank 0 writes
+``host.json``; the temporary directory is renamed by rank 0 after a barrier,
+so a step directory appears only once every shard is in it. A checkpoint is
+restored at the world size that wrote it (the reference restores one global
+array at any layout; the port's shards are the ranks' own).
+
 ``state_of`` turns a tree of dataclasses, dicts, lists, tensors, modules and
 generators into plain nested dicts and lists of tensors (modules by their
 ``state_dict``, generators by ``get_state()``); ``load_state`` puts such a
@@ -34,8 +41,19 @@ from typing import Any
 
 import torch
 
+from tvc_ai_torch.parallel import mesh
+
 CARRY_FILE = "carry.pt"
 HOST_FILE = "host.json"
+
+
+def shard_file(rank: int) -> str:
+    """The carry file of data-parallel rank ``rank``."""
+    return f"carry.rank{rank}.pt"
+
+
+def _complete(step_dir: Path) -> bool:
+    return (step_dir / CARRY_FILE).exists() or (step_dir / shard_file(0)).exists()
 _MODULE = "__module_state__"
 _GENERATOR = "__generator_state__"
 
@@ -126,37 +144,75 @@ class CheckpointManager:
     def all_steps(self) -> list[int]:
         return sorted(
             int(d.name) for d in self.directory.iterdir()
-            if d.name.isdigit() and (d / CARRY_FILE).exists()
+            if d.name.isdigit() and _complete(d)
         )
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, payload: Any, host_state: dict | None = None) -> None:
+    def save(self, step: int, payload: Any, host_state: dict | None = None,
+             rank: int | None = None, world: int = 1) -> None:
         """Write ``payload`` (any tree ``state_of`` takes) and ``host_state`` as
         step ``step``; a step that exists is skipped (the same count holds
-        the same state)."""
+        the same state). With ``world > 1`` every rank calls it with its own
+        ``rank`` and payload (its shard)."""
         if step in self.all_steps():
+            return
+        if world > 1:
+            self._save_shard(step, payload, host_state, rank, world)
             return
         tmp = self.directory / f"{step}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
         torch.save(state_of(payload), tmp / CARRY_FILE)
         (tmp / HOST_FILE).write_text(json.dumps(host_state or {}, indent=2))
+        self._publish(tmp, step)
+
+    def _publish(self, tmp: Path, step: int) -> None:
         tmp.rename(self.directory / str(step))
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self.directory / str(old))
 
-    def restore(self, step: int | None = None,
-                device: str | torch.device = "cpu") -> tuple[Any, dict]:
+    def _save_shard(self, step: int, payload: Any, host_state: dict | None, rank: int,
+                    world: int) -> None:
+        tmp = self.directory / f"{step}.tmp-world{world}"
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+        mesh.barrier()
+        torch.save(state_of(payload), tmp / shard_file(rank))
+        if rank == 0:
+            (tmp / HOST_FILE).write_text(json.dumps(dict(host_state or {}, world_size=world),
+                                                    indent=2))
+        mesh.barrier()
+        if rank == 0:
+            self._publish(tmp, step)
+        mesh.barrier()
+
+    def world_of(self, step: int) -> int:
+        """The world size that wrote ``step`` (1 for a single-process save)."""
+        path = self.directory / str(step)
+        shards = sum(1 for f in path.iterdir() if f.name.startswith("carry.rank"))
+        return shards or 1
+
+    def restore(self, step: int | None = None, device: str | torch.device = "cpu",
+                rank: int | None = None, world: int = 1) -> tuple[Any, dict]:
         """(payload state, host state) of ``step`` (default: the latest), the
-        tensors on ``device``; put the state back with ``load_state``."""
+        tensors on ``device``; put the state back with ``load_state``. Under
+        data parallelism each rank restores its own shard; the checkpoint
+        must have been written at the same world size."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no completed checkpoints under {self.directory}")
         path = self.directory / str(step)
-        state = torch.load(path / CARRY_FILE, map_location=device, weights_only=True)
+        saved_world = self.world_of(step)
+        if saved_world != world:
+            raise ValueError(
+                f"{path} was written by {saved_world} process(es); resuming it needs the same "
+                f"world size, not {world}")
+        name = shard_file(rank) if world > 1 else CARRY_FILE
+        state = torch.load(path / name, map_location=device, weights_only=True)
         return state, json.loads((path / HOST_FILE).read_text())
 
     @staticmethod
@@ -164,7 +220,7 @@ class CheckpointManager:
         """(manager, step) for a manager root (its latest step) or a single
         step directory like ``<run>/checkpoints_best/7208960``."""
         path = Path(path)
-        if path.name.isdigit() and (path / CARRY_FILE).exists():
+        if path.name.isdigit() and _complete(path):
             return CheckpointManager(path.parent), int(path.name)
         if not path.is_dir():
             raise FileNotFoundError(f"no checkpoint directory at {path}")

@@ -1,4 +1,5 @@
-"""Training logger: console + ``training.log`` + ``metrics.csv`` + TensorBoard.
+"""Training logger: console + ``training.log`` + ``metrics.csv`` + TensorBoard
+(``SilentLogger`` for the data-parallel ranks that do not log).
 
 Counterpart of ``tvc_ai_tpu/utils/logging.py``. Metrics arrive aggregated
 once per iteration (the trainer reads the device once per iteration), so
@@ -207,3 +208,28 @@ class TrainingLogger:
         for h in list(self.logger.handlers):
             h.close()
             self.logger.removeHandler(h)
+
+
+class SilentLogger:
+    """The logger of a data-parallel rank other than 0: the same calls,
+    nothing written (rank 0 logs for the group)."""
+
+    def __init__(self, output_dir: str | Path):
+        self.output_dir = Path(output_dir)
+
+    def info(self, msg: str, *args) -> None:
+        pass
+
+    warning = info
+
+    def log_metrics(self, step: int, metrics: dict[str, Any]) -> None:
+        pass
+
+    def progress_line(self, step: int, total: int, metrics: dict[str, Any]) -> None:
+        pass
+
+    def save_plots(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
