@@ -148,6 +148,28 @@ of 512 envs x 600 steps, a 25 % demo fraction, BC 2.5) with
 seeding's seconds and success rate, the replay and demo-buffer sizes, s per
 iteration, updates/s and K1 launches.
 
+Phases [16a]-[16e] drive the distillation chain. [16a] designs the
+gain-scheduled LQR (``design_lqr_schedule``, 7 x 7 cells of
+``dagger_distill``'s widened DR box) with its verification (1,568 rows x
+600 steps) on the card, timed, and on the CPU on the same draws: flipped
+rollouts counted and bounded, the selected variants and gains equal where
+decided. [16b] holds ``cem.refine_per_draw`` card vs CPU (64 draws x 8 pop x
+160 steps x 2 generations: every draw's win equal, parted draws counted and
+their scores bounded) and times one refinement at 512 draws x 32 pop x
+500 steps, generations cut to 2. [16c] holds both DAgger iterations card vs
+CPU (64 envs x 16 steps, 32 minibatches), runs the scheduled teacher at the
+CLI's full width (512 x 512 steps, history 8, a 2,097,152-row ring, 1,500
+minibatches of 4,096), the CEM teacher at 512 draws x 32 pop with its depth
+cut, writes ``student.pt`` and runs ``python -m tvc_ai_torch.dagger_distill``
+for one cut iteration. [16d] holds ``theta_hat_action`` and one θ-DAgger
+iteration card vs CPU, runs one at 512 draws x 64 pop with its depth cut and
+evaluates the θ policy on 512 robustness episodes. [16e] trains
+``robust_student_ft_r5.yaml`` at its widths warm-started from [16c]'s
+``student.pt`` (two 16-step iterations), holds the pilot card vs CPU (8
+episodes x 32 particles x 16 steps) and runs ``python -m
+tvc_ai_torch.pilot_eval`` at 512 episodes x 192 particles for 64 steps with
+one library selection.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
@@ -191,7 +213,14 @@ from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.env.wrappers import RocketConfig
 from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state, run_all_suites
-from tvc_ai_torch.eval.rollout import EvalDraws, make_eval_fn, steps_run, summarize_stats
+from tvc_ai_torch import dagger_distill, pilot_eval
+from tvc_ai_torch.eval.rollout import (
+    EvalDraws,
+    make_eval_fn,
+    make_policy_eval_fn,
+    steps_run,
+    summarize_stats,
+)
 from tvc_ai_torch.export.c_array import generate_c_array, generate_tflm_example
 from tvc_ai_torch.export.micro import MicroActor, build_runtime, export_micro, quantize_actor
 from tvc_ai_torch.export.tflite import (
@@ -213,7 +242,7 @@ from tvc_ai_torch.physics import integrator
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.parallel import mesh
-from tvc_ai_torch.training import demos, loop
+from tvc_ai_torch.training import cem, dagger, demos, loop, pilot, theta_student
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
 from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training.population import (
@@ -2374,10 +2403,561 @@ def run_robust_r4(scratch: Path, dev) -> dict:
     return {"robust_r4_demos": demo_launches, "robust_r4": launches}
 
 
+# ---------------------------------------------------------------- 16. the distillation chain
+DISTILL_OBS = dict(drift_obs_enabled=True, action_obs_enabled=True)
+LIBRARY = ROOT / "tvc_ai_torch" / "data" / "ctrl_library_robustness.npz"
+SCORE_CRASH = 2e-2           # a crashing CEM candidate's score drift (tests/test_torch_cem.py)
+# a parted [16b] draw's best-score drift: a few streak steps and the tilt term,
+# 2x the largest over 6 seeds of 64 draws on an H100 (--cem-parting 6); a win is 1000
+SCORE_PARTED = 4.0
+CEM_CHECK = dict(draws=64, pop=8, elites=4, horizon=160, generations=2)      # [16b] card vs CPU
+CEM_SEEDS = (SEED + 61, SEED + 62)   # [16b]: the second has draws that win
+CEM_FULL = dict(draws=512, pop=32, horizon=500, generations=2)   # [16b]: generations cut from 15
+DAGGER_CHECK = dict(num_envs=64, rollout_steps=16, train_steps=32, batch_size=256)  # [16c]
+DAGGER_FULL = dict(num_envs=512, rollout_steps=512, train_steps=1500, batch_size=4096)
+# [16c]'s CEM-teacher iteration at 512 draws x 32 pop: generations cut from 15, the
+# scoring horizon from 500, the rollout from 512 steps and the minibatches from 1500
+CEM_DAGGER_CUT = dict(rollout_steps=64, train_steps=100, generations=2, horizon=200)
+# [16d] at 512 draws x 64 pop: generations cut from 25, horizon from 700, rollout
+# from 512 steps, minibatches from 1500; the policy's eval horizon from 2000
+THETA_CUT = dict(num_envs=512, capacity=1 << 21, rollout_steps=32, train_steps=100, generations=1,
+                 horizon=100, eval_steps=256)
+CLI_DAGGER = ["--iters", "1", "--envs", "64", "--rollout_steps", "16", "--train_steps", "32",
+              "--batch", "1024", "--eval_episodes", "16", "--teacher", "scheduled"]
+FT_YAML, FT_ROLLOUT = "robust_student_ft_r5.yaml", 16     # [16e]: rollout_steps cut from 128
+FT_EXTRA: list[str] = []   # further overrides (none on the card; a CPU rehearsal shrinks it)
+PILOT_CHECK = dict(episodes=8, particles=32, steps=16)      # [16e] card vs CPU
+PILOT_CLI = ["--steps", "64", "--select", "25"]            # [16e]: the horizon cut from 2000
+HIDDEN_STUDENT = (256, 256)
+HISTORY = 8
+SCHEDULE = dict(grid=7, rollouts=8, horizon=600)   # [16a]: design_lqr_schedule's defaults
+
+
+def distill_params() -> EnvParams:
+    """``python -m tvc_ai_torch.dagger_distill``'s training env: the
+    robustness suite with the drift and action channels, the DR box widened
+    by its defaults."""
+    return dagger_distill.widened_params(
+        _suite_env_params("robustness", obs_overrides=DISTILL_OBS), 0.35, 0.25, 0.06, 3.5)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def schedule_card_vs_cpu(dev) -> tuple[demos.LQRSchedule, int]:
+    """[16a]: ``design_lqr_schedule`` at 7 x 7 with verification (49 cells x 4
+    variants x 8 rollouts = 1,568 rows x 600 steps) on the card, timed, and
+    on the CPU on the same draws: flipped rollouts counted and bounded (2 %
+    of the rollouts), the selected variant equal wherever its margin over
+    the runner-up exceeds the cell's flips, the selected gains and ``z_eq``
+    at rtol 1e-4 there. Returns the card's schedule and its K1 launches."""
+    params = distill_params()
+    v_params = dataclasses.replace(params, randomization=dataclasses.replace(
+        params.randomization, enabled=False, sensor_noise_enabled=False,
+        sensor_noise_uniform=False, progress_rate_randomized=False))
+    grid, rollouts, horizon = SCHEDULE["grid"], SCHEDULE["rollouts"], SCHEDULE["horizon"]
+    cells = grid * grid
+    rows = cells * (len(demos._VERIFY_R_SCALES) + 1) * rollouts
+    size = dict(n_mass=grid, n_tscale=grid, verify_rollouts=rollouts, verify_horizon=horizon)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 60)
+    draws = (rocket_env.draw_reset(v_params, rows, cpu, gen),
+             torch.rand(rows, generator=gen) * (2.0 * math.pi))
+    t0 = time.perf_counter()
+    demos.design_lqr_schedule(params, n_mass=grid, n_tscale=grid, verify=False)
+    design_s = time.perf_counter() - t0
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    card = demos.design_lqr_schedule(params, **size, device=dev,
+                                     verify_draws=to_device(draws, dev))
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    assert launches == horizon, launches
+    t0 = time.perf_counter()
+    ref = demos.design_lqr_schedule(params, **size, device="cpu", verify_draws=draws)
+    cpu_s = time.perf_counter() - t0
+    vs_a = card.variant_success.reshape(cells, -1).numpy()
+    vs_b = ref.variant_success.reshape(cells, -1).numpy()
+    cell_flips = np.rint(np.abs(vs_a - vs_b) * rollouts).sum(1)
+    flips = int(cell_flips.sum())
+    assert flips <= rows // 50, (flips, rows)
+    top2 = np.sort(vs_b, 1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) * rollouts > cell_flips
+    same = vs_a.argmax(1) == vs_b.argmax(1)
+    assert same[decided].all(), np.flatnonzero(decided & ~same)
+    torch.testing.assert_close(card.z_eq, ref.z_eq, rtol=1e-4, atol=0.0)
+    for name in ("gain", "gain_pitch"):
+        a, b = getattr(card, name).reshape(cells, 6), getattr(ref, name).reshape(cells, 6)
+        torch.testing.assert_close(a[torch.from_numpy(same)], b[torch.from_numpy(same)],
+                                   rtol=1e-4, atol=1e-6, msg=name)
+    log(f"[16a] design_lqr_schedule {grid} x {grid} (dagger_distill's training env): "
+        f"design {design_s:.3f} s on the host CPU; with verification on the card {card_s:.3f} s "
+        f"({card_s - design_s:.3f} s of verification: {rows} rows x {horizon} steps, K1 "
+        f"launches {launches}); on the CPU {cpu_s:.3f} s; feasible cells card "
+        f"{int(card.feasible.sum())}, CPU {int(ref.feasible.sum())} of {cells}; flipped "
+        f"rollouts {flips} of {rows} (bound {rows // 50}); selected variant equal in "
+        f"{int(same.sum())} of {cells} cells, {int(decided.sum())} decided beyond their flips: ok")
+    return card, launches
+
+
+def cem_check(dev, sched: demos.LQRSchedule, seed: int) -> dict:
+    """``refine_per_draw`` at ``CEM_CHECK`` on the card and on the CPU from the
+    same draws (``seed``), compared draw by draw: the CPU's best score
+    ("score"), |card − CPU| of it ("d_score"), the draws won on the CPU
+    ("won") and where the card's win differs ("win_flip"), the draws whose
+    best θ (1e-4) or best score (``SCORE_CRASH``) parts ("parted"), and the
+    card's K1 launches ("launches")."""
+    params = distill_params()
+    c = CEM_CHECK
+    cfg = cem.CEMConfig(pop=c["pop"], elites=c["elites"], generations=c["generations"],
+                        horizon=c["horizon"])
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed)
+    reset_draws = rocket_env.draw_reset(params, c["draws"], cpu, gen)
+    cem_draws = cem.draw(c["draws"], cfg, cpu, gen)
+    out = {}
+    for where in (cpu, dev):
+        states, _ = rocket_env.reset(params, c["draws"], where,
+                                     draws=to_device(reset_draws, where))
+        k1.step_kernel.launches = 0
+        theta, score = cem.refine_per_draw(
+            params, states, cem.theta_for_states(sched, states), cfg,
+            draws=to_device(cem_draws, where),
+            generator=torch.Generator(device=where).manual_seed(0))
+        out[where.type] = (theta.cpu(), score.cpu())
+    (th_a, s_a), (th_b, s_b) = out[dev.type], out["cpu"]
+    d_score = (s_a - s_b).abs()
+    won = s_b >= 0.5 * cfg.success_bonus
+    return {"score": s_b, "d_score": d_score, "won": won,
+            "win_flip": (s_a >= 0.5 * cfg.success_bonus) != won,
+            "parted": ~(((th_a - th_b).abs() <= 1e-4 + 1e-4 * th_b.abs()).all(1)
+                        & (d_score <= SCORE_CRASH)),
+            "launches": k1.step_kernel.launches}
+
+
+def cem_card_vs_cpu(dev, sched: demos.LQRSchedule) -> dict:
+    """[16b]: ``refine_per_draw`` card vs CPU at 64 draws x 8 pop (4 elites) x
+    160 steps (a win needs 100) x 2 generations on the same draws, for each
+    of ``CEM_SEEDS``. Every
+    draw's win (score ≥ half the success bonus) is equal on both sides. A
+    draw is held at best θ 1e-4 and best score ``SCORE_CRASH``; where either
+    parts (K1's rounding amplified by a crashing candidate, or elites that
+    part on a near-tie) the draw is counted, at most 1 in 8, and its best
+    score held at ``SCORE_PARTED``. Then one refinement at ``dagger_distill``'s
+    width (512 draws x 32 pop = 16,384 rows, horizon 500), generations cut
+    from 15 to 2."""
+    params = distill_params()
+    c = CEM_CHECK
+    check_launches = 0
+    for seed in CEM_SEEDS:
+        chk = cem_check(dev, sched, seed)
+        flips, parted, d_score = chk["win_flip"], chk["parted"], chk["d_score"]
+        assert not flips.any(), (seed, np.flatnonzero(flips.numpy()), chk["score"][flips])
+        n_parted = int(parted.sum())
+        assert n_parted <= c["draws"] // 8, (seed, n_parted, chk["score"][parted], d_score[parted])
+        parted_err = float(d_score[parted].max()) if n_parted else 0.0
+        assert parted_err <= SCORE_PARTED, (seed, chk["score"][parted], d_score[parted])
+        assert chk["launches"] > 0, chk
+        check_launches += chk["launches"]
+        log(f"[16b] refine_per_draw card vs CPU, seed {seed} ({c['draws']} draws x {c['pop']} "
+            f"pop, {c['elites']} elites, {c['horizon']} steps x {c['generations']} generations; "
+            f"elites by a stable descending sort, the first of equal scores): wins equal on all "
+            f"{c['draws']} draws ({int(chk['won'].sum())} won); best θ equal at 1e-4 and best "
+            f"score within {SCORE_CRASH} on {c['draws'] - n_parted} draws (max |d score| "
+            f"{float(d_score[~parted].max()):.3e}), {n_parted} parted (bound {c['draws'] // 8}; "
+            f"max |d score| {parted_err:.3e}, bound {SCORE_PARTED}); K1 launches "
+            f"{chk['launches']}: ok")
+    f = CEM_FULL
+    cfg = cem.CEMConfig(pop=f["pop"], generations=f["generations"], horizon=f["horizon"])
+    gen_d = torch.Generator(device=dev).manual_seed(SEED + 62)
+    states, _ = rocket_env.reset(params, f["draws"], dev, generator=gen_d)
+    theta0 = cem.theta_for_states(sched, states)
+    sync(dev)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    _, score = cem.refine_per_draw(params, states, theta0, cfg, generator=gen_d)
+    solved = float((score >= 0.5 * cfg.success_bonus).float().mean())
+    seconds = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    rows = f["draws"] * f["pop"]
+    log(f"[16b] refine_per_draw at dagger_distill's width ({f['draws']} draws x {f['pop']} pop = "
+        f"{rows} rows, horizon {f['horizon']}; generations cut from 15 to {f['generations']}, a "
+        f"depth cut): {seconds:.3f} s, {launches} K1 steps (early exit at the first multiple of "
+        f"32 where every row ended), {launches * rows / seconds:.0f} env steps/s, "
+        f"{seconds / max(launches, 1) * 1e3:.3f} ms of host per step; solved {solved:.4f}")
+    return {"cem_card_vs_cpu": check_launches, "cem_full": launches}
+
+
+def cem_parting(dev, seeds: int) -> int:
+    """``--cem-parting N``: [16b]'s card-vs-CPU check on N seeds of draws,
+    each seed's win flips and parted draws printed (what sizes
+    ``SCORE_PARTED``)."""
+    sched, _ = schedule_card_vs_cpu(dev)
+    for seed in range(SEED + 61, SEED + 61 + seeds):
+        chk = cem_check(dev, sched, seed)
+        parted = chk["parted"]
+        log(f"[16b] seed {seed}: {int(chk['won'].sum())} won, {int(chk['win_flip'].sum())} win "
+            f"flips, {int(parted.sum())} parted, |d score| of the parted "
+            f"{[round(float(x), 4) for x in chk['d_score'][parted]]}, of the rest at most "
+            f"{float(chk['d_score'][~parted].max()):.3e}")
+    return 0
+
+
+def dagger_draws(params: EnvParams, n: int, steps: int, train_steps: int, batch: int,
+                 gen: torch.Generator, cem_cfg: cem.CEMConfig | None = None):
+    """CPU draws of one DAgger iteration (the CEM teacher's too with ``cem_cfg``)."""
+    cpu = torch.device("cpu")
+    d = dagger.DaggerDraws(
+        u_mix=torch.rand((steps, n, 1), generator=gen),
+        steps=[StepDraws(n_imu=torch.randn((n, 7), generator=gen),
+                         reset=rocket_env.draw_reset(params, n, cpu, gen)) for _ in range(steps)],
+        idx=torch.randint(0, n * steps, (train_steps, batch), generator=gen))
+    if cem_cfg is not None:
+        d.reset = rocket_env.draw_reset(params, n, cpu, gen)
+        d.cem = cem.draw(n, cem_cfg, cpu, gen)
+        d.u_choice = torch.rand(n, generator=gen)
+    return d
+
+
+def module_flips(a: torch.nn.Module, b: torch.nn.Module, updates: int, what: str):
+    """``adam_flips`` over a card module's parameters against the CPU's:
+    (elements beyond PARAMS, largest difference)."""
+    held = [adam_flips(x.detach().cpu(), y.detach(), updates, f"{what} {name}")
+            for (name, x), y in zip(a.named_parameters(), b.parameters())]
+    return sum(o for o, _ in held), max(d for _, d in held)
+
+
+def run_dagger(scratch: Path, dev, sched: demos.LQRSchedule):
+    """[16c]: both DAgger teachers card vs CPU at 64 envs x 16 steps and 32
+    minibatches on the same draws (student parameters at 1e-4); the scheduled
+    teacher at ``dagger_distill``'s full width; the CEM teacher at 512 draws x
+    32 pop with its depth cut; ``student.pt`` written; the CLI for one
+    iteration. Returns (K1 launches, the student's path, the student)."""
+    params = distill_params()
+    n_obs = obs_dim(params)
+    view = n_obs * HISTORY
+    sac_cfg = sac.SACConfig(hidden_dims=HIDDEN_STUDENT)
+    cpu = torch.device("cpu")
+    c = DAGGER_CHECK
+    cfg = dagger.DaggerConfig(num_envs=c["num_envs"], rollout_steps=c["rollout_steps"],
+                              capacity=2 * c["num_envs"] * c["rollout_steps"],
+                              batch_size=c["batch_size"], train_steps=c["train_steps"],
+                              history_len=HISTORY)
+    cem_small = cem.CEMConfig(pop=4, elites=2, generations=2, horizon=32)
+    gen = torch.Generator().manual_seed(SEED + 63)
+    init_draws = rocket_env.draw_reset(params, cfg.num_envs, cpu, gen)
+    draws = {kind: dagger_draws(params, cfg.num_envs, cfg.rollout_steps, cfg.train_steps,
+                                cfg.batch_size, gen, cem_small if kind == "cem" else None)
+             for kind in ("scheduled", "cem")}
+    launches = {}
+    for kind in ("scheduled", "cem"):
+        actors, metrics = {}, {}
+        for where in (cpu, dev):
+            actor = sac.make_actor(view, 2, sac_cfg, where, seed=1)
+            sched_w = sched.to(where)
+            rp = params.rocket
+            if kind == "scheduled":
+                state = dagger.init_state(params, actor, cfg, n_obs, 2, where,
+                                          reset_draws=to_device(init_draws, where))
+                it = dagger.make_dagger_iteration(
+                    params, lambda s: demos.lqr_action_scheduled(
+                        s.body, sched_w, s.dr.mass, s.dr.thrust_scale,
+                        torch.zeros_like(s.dr.cg_offset), rp), sac_cfg, cfg, n_obs, 2)
+            else:
+                state = dagger.init_cem_state(actor, cfg, n_obs, 2, where)
+                it = dagger.make_cem_dagger_iteration(params, sched_w, sac_cfg, cfg, n_obs, 2,
+                                                      cem_small)
+            k1.step_kernel.launches = 0
+            state, m = it(state, 0.5, to_device(draws[kind], where),
+                          torch.Generator(device=where).manual_seed(0))
+            launches[f"dagger_{kind}_card_vs_cpu"] = k1.step_kernel.launches
+            actors[where.type], metrics[where.type] = state, m
+        a, b = actors[dev.type], actors["cpu"]
+        over, err = module_flips(a.actor, b.actor, cfg.train_steps, f"{kind} student")
+        torch.testing.assert_close(a.data_obs.cpu(), b.data_obs, **OBS)
+        for k in metrics["cpu"]:
+            torch.testing.assert_close(metrics[dev.type][k].cpu().float(),
+                                       metrics["cpu"][k].float(), **METRICS, msg=k)
+        log(f"[16c] {kind}-teacher DAgger iteration card vs CPU ({cfg.num_envs} envs x "
+            f"{cfg.rollout_steps} steps, history {HISTORY}, {cfg.train_steps} minibatches of "
+            f"{cfg.batch_size}, 256x256 student): max |d param| {err:.3e} (atol "
+            f"{PARAMS['atol']}; {over} elements beyond it, Adam sign flips, bounded), ring rows "
+            f"at the env bars, metrics equal; K1 launches "
+            f"{launches[f'dagger_{kind}_card_vs_cpu']}: ok")
+
+    # the scheduled teacher at full width
+    f = DAGGER_FULL
+    cfg = dagger.DaggerConfig(num_envs=f["num_envs"], rollout_steps=f["rollout_steps"],
+                              capacity=8 * f["num_envs"] * f["rollout_steps"],
+                              batch_size=f["batch_size"], train_steps=f["train_steps"],
+                              history_len=HISTORY)
+    gen_d = torch.Generator(device=dev).manual_seed(SEED + 64)
+    sched_d = sched.to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    template = sac.init(view, 2, sac_cfg, dev, seed=SEED)
+    state = dagger.init_state(params, template.actor, cfg, n_obs, 2, dev, gen_d)
+    rp = params.rocket
+    it = dagger.make_dagger_iteration(
+        params, lambda s: demos.lqr_action_scheduled(
+            s.body, sched_d, s.dr.mass, s.dr.thrust_scale, torch.zeros_like(s.dr.cg_offset), rp),
+        sac_cfg, cfg, n_obs, 2)
+    sync(dev)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    roll = it.collect(state, 1.0, None, gen_d)
+    sync(dev)
+    roll_s = time.perf_counter() - t0
+    launches["dagger_full"] = k1.step_kernel.launches
+    t0 = time.perf_counter()
+    train = it.train(state, None, gen_d)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e6
+    ring_mb = state.data_obs.numel() * 4 / 1e6
+    rows = cfg.num_envs * cfg.rollout_steps
+    assert launches["dagger_full"] == cfg.rollout_steps and state.size == rows
+    assert math.isfinite(float(train["bc_loss_last"]))
+    log(f"[16c] scheduled-teacher iteration at dagger_distill's width ({cfg.num_envs} envs x "
+        f"{cfg.rollout_steps} steps = {rows} rows, history {HISTORY} (view {view}), ring "
+        f"{cfg.capacity} rows, {cfg.train_steps} minibatches of {cfg.batch_size}): rollout "
+        f"{roll_s:.3f} s ({roll_s / cfg.rollout_steps * 1e3:.3f} ms per step, "
+        f"{rows / roll_s:.0f} env steps/s), train {train_s:.3f} s ({train_s / cfg.train_steps * 1e3:.3f} "
+        f"ms per minibatch), bc {float(train['bc_loss_first']):.5f} -> "
+        f"{float(train['bc_loss_last']):.5f}, {int(roll['rollout_episodes'])} episodes ended; "
+        f"data_obs {ring_mb:.1f} MB, peak device memory {peak:.1f} MB; K1 launches "
+        f"{launches['dagger_full']}")
+    student_path = scratch / "dagger_r5" / "student.pt"
+    dagger.save_student(student_path, state.actor, sac_cfg, view, 2, SEED)
+    student_actor = state.actor
+    del state, it, template
+
+    # the CEM teacher at 512 draws x 32 pop, depth cut
+    x = CEM_DAGGER_CUT
+    cfg = dagger.DaggerConfig(num_envs=f["num_envs"], rollout_steps=x["rollout_steps"],
+                              capacity=8 * f["num_envs"] * x["rollout_steps"],
+                              batch_size=f["batch_size"], train_steps=x["train_steps"],
+                              history_len=HISTORY)
+    ccfg = cem.CEMConfig(pop=32, generations=x["generations"], horizon=x["horizon"])
+    state = dagger.init_cem_state(sac.make_actor(view, 2, sac_cfg, dev, seed=2), cfg, n_obs, 2,
+                                  dev)
+    it = dagger.make_cem_dagger_iteration(params, sched, sac_cfg, cfg, n_obs, 2, ccfg)
+    sync(dev)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    state, m = it(state, 1.0, generator=gen_d)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches["dagger_cem"] = k1.step_kernel.launches
+    log(f"[16c] CEM-teacher iteration ({cfg.num_envs} draws x {ccfg.pop} pop = "
+        f"{cfg.num_envs * ccfg.pop} scoring rows; cut: generations 15 -> {ccfg.generations}, "
+        f"scoring horizon 500 -> {ccfg.horizon}, rollout 512 -> {cfg.rollout_steps} steps, "
+        f"minibatches 1500 -> {cfg.train_steps}): {seconds:.3f} s, teacher solved "
+        f"{float(m['teacher_solved']):.4f}, labelled rows {float(m['labeled_rows']):.0f}; K1 "
+        f"launches {launches['dagger_cem']}")
+    del state, it
+
+    # the command-line module, one cut iteration, in process
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    rc = dagger_distill.main(["--out", str(scratch / "dagger_cli"), *CLI_DAGGER])
+    assert rc == 0 and (scratch / "dagger_cli" / "student.pt").exists(), rc
+    launches["dagger_cli"] = k1.step_kernel.launches
+    log(f"[16c] python -m tvc_ai_torch.dagger_distill {' '.join(CLI_DAGGER)}: exit 0 in "
+        f"{time.perf_counter() - t0:.3f} s, K1 launches {launches['dagger_cli']}; student.pt "
+        f"written ({student_path.stat().st_size} B from the full-width iteration)")
+    return launches, student_path, student_actor
+
+
+def run_theta(dev, sched: demos.LQRSchedule) -> dict:
+    """[16d]: ``theta_hat_action`` card vs CPU at 1e-5 and one small θ-DAgger
+    iteration at 1e-4; one iteration at 512 draws x 64 pop with its depth
+    cut; ``make_theta_policy_fn`` through ``make_policy_eval_fn`` on 512
+    robustness episodes, the horizon cut."""
+    params = distill_params()
+    n_obs = obs_dim(params)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 65)
+    _, obs = rocket_env.reset(params, 512, cpu, generator=gen)
+    theta10 = torch.randn((512, 10), generator=gen) * 2.0
+    a = theta_student.theta_hat_action(theta10.to(dev), obs.to(dev), params).cpu()
+    b = theta_student.theta_hat_action(theta10, obs, params)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    launches = {}
+    cfg = theta_student.ThetaDaggerConfig(num_envs=64, rollout_steps=16, capacity=2048,
+                                          batch_size=256, train_steps=32, history_len=HISTORY)
+    cem_small = cem.CEMConfig(pop=4, elites=2, generations=2, horizon=32)
+    draws = dagger_draws(params, cfg.num_envs, cfg.rollout_steps, cfg.train_steps,
+                         cfg.batch_size, gen, cem_small)
+    states = {}
+    for where in (cpu, dev):
+        state = theta_student.init_theta_state(cfg, n_obs, where, seed=3)
+        it = theta_student.make_theta_dagger_iteration(params, sched, cfg, n_obs, cem_small)
+        k1.step_kernel.launches = 0
+        state, _ = it(state, 0.5, to_device(draws, where),
+                      torch.Generator(device=where).manual_seed(0))
+        launches["theta_card_vs_cpu"] = k1.step_kernel.launches
+        states[where.type] = state
+    over, err = module_flips(states[dev.type].net, states["cpu"].net, cfg.train_steps, "θ-net")
+    torch.testing.assert_close(states[dev.type].data_theta.cpu(), states["cpu"].data_theta,
+                               atol=1e-5, rtol=1e-5)
+    log(f"[16d] theta_hat_action card vs CPU at 512 frames: max |d a| "
+        f"{float((a - b).abs().max()):.3e} (1e-5); θ-DAgger iteration card vs CPU (64 envs x 16 "
+        f"steps, 32 minibatches): max |d param| {err:.3e} (atol {PARAMS['atol']}; {over} "
+        f"elements beyond it, Adam sign flips, bounded); K1 launches "
+        f"{launches['theta_card_vs_cpu']}: ok")
+    x = THETA_CUT
+    cfg = theta_student.ThetaDaggerConfig(num_envs=x["num_envs"], capacity=x["capacity"],
+                                          rollout_steps=x["rollout_steps"],
+                                          train_steps=x["train_steps"])
+    ccfg = cem.CEMConfig(pop=64, generations=x["generations"], horizon=x["horizon"])
+    gen_d = torch.Generator(device=dev).manual_seed(SEED + 66)
+    state = theta_student.init_theta_state(cfg, n_obs, dev, seed=SEED)
+    it = theta_student.make_theta_dagger_iteration(params, sched, cfg, n_obs, ccfg)
+    sync(dev)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    state, m = it(state, 1.0, generator=gen_d)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches["theta_full"] = k1.step_kernel.launches
+    log(f"[16d] θ-DAgger iteration ({cfg.num_envs} draws x {ccfg.pop} pop = "
+        f"{cfg.num_envs * ccfg.pop} scoring rows, ring {cfg.capacity} rows of view "
+        f"{n_obs * cfg.history_len}; cut: generations 25 -> {ccfg.generations}, horizon 700 -> "
+        f"{ccfg.horizon}, rollout 512 -> {cfg.rollout_steps}, minibatches 1500 -> "
+        f"{cfg.train_steps}): {seconds:.3f} s, teacher solved {float(m['teacher_solved']):.4f}, "
+        f"θ loss {float(m['theta_loss_first']):.4f} -> {float(m['theta_loss_last']):.4f}; K1 "
+        f"launches {launches['theta_full']}")
+    eval_params = dataclasses.replace(_suite_env_params("robustness", obs_overrides=DISTILL_OBS),
+                                      max_episode_steps=x["eval_steps"])
+    eval_fn = make_policy_eval_fn(theta_student.make_theta_policy_fn(eval_params, cfg), 512,
+                                  history_len=cfg.history_len)
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    stats = eval_fn(state.net, torch.Generator(device=dev).manual_seed(SEED), eval_params)
+    success = float(stats.success.float().mean())
+    seconds = time.perf_counter() - t0
+    launches["theta_eval"] = k1.step_kernel.launches
+    assert torch.isfinite(stats.returns).all()
+    log(f"[16d] make_theta_policy_fn through make_policy_eval_fn: 512 robustness episodes "
+        f"(horizon cut from 2000 to {x['eval_steps']}): {seconds:.3f} s, "
+        f"{launches['theta_eval']} steps run, success {success:.4f}, mean length "
+        f"{float(stats.lengths.float().mean()):.1f}")
+    return launches
+
+
+def run_student_finetune(scratch: Path, dev, student_path: Path, student) -> int:
+    """[16e]: ``robust_student_ft_r5.yaml`` at its widths (512 envs, 16
+    updates of batch 1024 per step, history 8), warm-started from [16c]'s
+    ``student.pt``, ``rollout_steps`` cut from 128 to 16, two iterations and
+    the final eval. The actor equals the student before the first update."""
+    cfg = load_config(default_config_path().parent / FT_YAML,
+                      [f"training.rollout_steps={FT_ROLLOUT}", "logging.tensorboard=false",
+                       f"training.warm_start_actor={student_path}", *FT_EXTRA])
+    n = cfg.training.num_envs
+    cfg.training.total_timesteps = 2 * n * FT_ROLLOUT
+    tr = Trainer(cfg, output_dir=scratch / "student_ft", device=dev)
+    assert diff_states(tr.carry.agent.actor, student) == []
+    assert tr.carry.agent.ema_actor is not None and diff_states(tr.carry.agent.ema_actor,
+                                                                 student) == []
+    evals: list = []
+    counting_evals(tr, evals)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches = k1.step_kernel.launches
+    iters = result["iterations"]
+    assert iters == 2 and launches == iters * FT_ROLLOUT + sum(k for k, _, _ in evals)
+    metrics = {k: v for k, v in result.items() if k.startswith("eval_")}
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    train_s = result["stage_timing"]["train_iteration"]["total_sec"]
+    log(f"[16e] {FT_YAML} ({n} envs, SAC batch {tr.sac_cfg.batch_size}, "
+        f"{cfg.training.updates_per_step} updates per step, view {tr.loop_cfg.obs_dim} x history "
+        f"{tr.loop_cfg.history_len}; rollout_steps cut from 128 to {FT_ROLLOUT}) warm-started "
+        f"from [16c]'s student.pt (actor and EMA actor equal to the student bit for bit): "
+        f"{result['stage_timing']['train_iteration']['mean_sec']:.4f} s per iteration, "
+        f"{tr.carry.agent.step} updates in {train_s:.4f} s = {tr.carry.agent.step / train_s:.1f} "
+        f"updates/s; K1 launches {launches}; final eval: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(metrics.items())
+                    if k.endswith(("success_rate", "reward_mean"))))
+    tr.logger.close()
+    return launches
+
+
+def pilot_card_vs_cpu(dev, sched: demos.LQRSchedule) -> int:
+    """[16e]: the pilot card vs CPU, 8 episodes x 32 particles x 16 steps of
+    act, env step and observe on the same draws: the filter's bodies at the
+    contact bars every step, the resampled swarms' draws equal (an index
+    that flips at a cumulative-weight boundary would move a particle's draw:
+    counted, with its env left out of the holds after it)."""
+    c = PILOT_CHECK
+    params = _suite_env_params("robustness", obs_overrides={"drift_obs_enabled": True})
+    pcfg = pilot.PilotConfig(particles=c["particles"])
+    n, p = c["episodes"], c["particles"]
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 67)
+    reset_draws = rocket_env.draw_reset(params, n, cpu, gen)
+    u_dr = torch.rand((n, p, 7), generator=gen) * 2.0 - 1.0
+    n_dr = torch.randn((n, p, 3), generator=gen)
+    steps = [(torch.randn((n, 7), generator=gen),
+              pilot.ResampleDraws(u=torch.rand(n, generator=gen),
+                                  n_jit=torch.randn((n, p, 8), generator=gen)))
+             for _ in range(c["steps"])]
+    runs = {}
+    for where in (cpu, dev):
+        states, obs = rocket_env.reset(params, n, where, draws=to_device(reset_draws, where))
+        ps = pilot.init_pilot(obs, params, pcfg, u_dr.to(where), n_dr.to(where))
+        sched_w = sched.to(where)
+        k1.step_kernel.launches = 0
+        trace = []
+        for n_imu, rd in steps:
+            ps, act = pilot.pilot_act(ps, sched_w, params, pcfg)
+            states, out = rocket_env.batched_step(states, act, params, n_imu=n_imu.to(where))
+            ps = pilot.pilot_observe(ps, out.obs, params, pcfg, to_device(rd, where))
+            trace.append((ps.filt.bodies, ps.filt.dr.mass))
+        runs[where.type] = (trace, k1.step_kernel.launches)
+    flipped = torch.zeros(n, dtype=torch.bool)
+    for (body_a, mass_a), (body_b, mass_b) in zip(runs[dev.type][0], runs["cpu"][0]):
+        flipped |= ((mass_a.cpu() - mass_b).abs() > 1e-4).any(1)
+        keep = ~flipped
+        for f in ("pos", "quat", "vel", "omega"):
+            torch.testing.assert_close(getattr(body_a, f).cpu()[keep], getattr(body_b, f)[keep],
+                                       **CONTACT, msg=f)
+    assert int(flipped.sum()) <= 1, flipped
+    launches = runs[dev.type][1]
+    assert launches == 2 * c["steps"], launches   # the env's step and the swarm's prediction
+    log(f"[16e] pilot card vs CPU ({n} episodes x {p} particles x {c['steps']} steps): the "
+        f"filter's bodies at the contact bars every step, resampled draws equal; envs with a "
+        f"flipped resampling index {int(flipped.sum())} (bound 1); K1 launches {launches} "
+        f"(env + prediction per step): ok")
+    return launches
+
+
+def run_pilot_eval(dev) -> int:
+    """[16e]: ``python -m tvc_ai_torch.pilot_eval`` at its defaults' width
+    (512 episodes x 192 particles = 98,304 particle rows a filter step) for
+    64 steps, one library selection at step 25 over the port's copy of the
+    19-controller library (512 x 8 samples x 19 = 77,824 rows x up to 500
+    steps)."""
+    argv = [*PILOT_CLI, "--library", str(LIBRARY)]
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    assert pilot_eval.main(argv) == 0
+    launches = k1.step_kernel.launches
+    log(f"[16e] python -m tvc_ai_torch.pilot_eval {' '.join(argv)}: exit 0 in "
+        f"{time.perf_counter() - t0:.3f} s (the schedule's design and verification included; "
+        f"the per-step and selection seconds are its [pilot: ...] line above); K1 launches "
+        f"{launches} (600 verification + 64 env + 64 prediction + the selection's scoring steps)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
                     help="root of another checkout whose K1 phase [6] times in turns with this one")
+    ap.add_argument("--cem-parting", type=int, default=0, metavar="N",
+                    help="build K1, then only run [16b]'s card-vs-CPU check on N seeds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2404,6 +2984,8 @@ def main() -> int:
     log(f"[2] built {lib.name} in {time.perf_counter() - t0:.2f} s")
     for line in build_log.strip().splitlines():
         log(f"[2] nvcc: {line.strip()}")
+    if args.cem_parting:
+        return cem_parting(dev, args.cem_parting)
 
     phase("[3]")
     # ---- 3. K1 against its plain version on the card
@@ -2930,6 +3512,24 @@ def main() -> int:
         ensemble_launches["demos_card_vs_cpu"] = DEMO_STEPS
         phase("[15b]")
         ensemble_launches.update(run_robust_r4(scratch, dev))
+
+        # ---- 16. the distillation chain: the gain schedule, CEM, DAgger,
+        # the θ-student, the warm-started fine-tune and the pilot
+        phase("[16a]")
+        sched, ensemble_launches["schedule_verification"] = schedule_card_vs_cpu(dev)
+        phase("[16b]")
+        ensemble_launches.update(cem_card_vs_cpu(dev, sched))
+        phase("[16c]")
+        dagger_launches, student_path, student = run_dagger(scratch, dev, sched)
+        ensemble_launches.update(dagger_launches)
+        phase("[16d]")
+        ensemble_launches.update(run_theta(dev, sched))
+        phase("[16e]")
+        ensemble_launches["student_ft"] = run_student_finetune(scratch, dev, student_path,
+                                                               student)
+        ensemble_launches["pilot_card_vs_cpu"] = pilot_card_vs_cpu(dev, sched)
+        phase("[16e] pilot_eval")
+        ensemble_launches["pilot_eval"] = run_pilot_eval(dev)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -283,8 +283,8 @@ def test_build_ensemble_config_as_in_jax(name):
 
 
 # the YAMLs of the robust-training runs the port runs (robust_r4.yaml with
-# training.demo_seeding; robust_student_ft_r5.yaml also needs
-# training.warm_start_actor)
+# training.demo_seeding; robust_student_ft_r5.yaml, whose student path the
+# port's copy changes, is held in tests/test_torch_distill_cli.py)
 ROBUST_YAMLS = ["curriculum_showcase.yaml", "probe_cg.yaml", "robust_full_r4d.yaml",
                 "robust_noncg_r4.yaml", "robust_noncg_r4b.yaml", "robust_noncg_r4c.yaml",
                 "robust_r3.yaml", "robust_r3b.yaml", "robust_r3c.yaml", "robust_r3d.yaml",

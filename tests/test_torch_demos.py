@@ -227,8 +227,12 @@ def test_demo_seeding_refused_where_the_reference_refuses(tmp_path):
     warm = tiny_cfg(tmp_path, extra=["training.warm_start_actor=student.msgpack"])
     with pytest.raises(ValueError, match="single-device"):
         check_supported(warm, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
-        check_supported(warm, 1)
+    check_supported(warm, 1)   # ported: the Trainer reads the port's own student file
+    with pytest.raises(NotImplementedError, match="flax msgpack"):
+        (tmp_path / "student.msgpack").write_bytes(b"\x81\xa5state\x80")
+        Trainer(tiny_cfg(tmp_path, extra=[
+            f"training.warm_start_actor={tmp_path / 'student.msgpack'}"]),
+            output_dir=tmp_path / "w", device="cpu")
     cut = tiny_cfg(tmp_path, extra=["training.demo_seeding.enabled=true",
                                     "training.demo_seeding.envs=3"])
     with pytest.raises(ValueError, match="must divide"):

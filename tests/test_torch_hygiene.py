@@ -31,7 +31,7 @@ from tvc_ai_torch.models import hierarchical, rnd
 from tvc_ai_torch.models.safety import SafetyCorrectionNet
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.train import main as train_main
-from tvc_ai_torch.training import demos, loop, population
+from tvc_ai_torch.training import cem, dagger, demos, loop, pilot, population, theta_student
 from tvc_ai_torch.training.trainer import Trainer
 from tvc_ai_torch.training.trainer_ensemble import EnsembleTrainer
 
@@ -66,7 +66,7 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
-            *EXPORT_MODULES, *PARALLEL_DEMO_MODULES} <= set(MODULES)
+            *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -83,9 +83,16 @@ EXPORT_MODULES = ["tvc_ai_torch.agents.legacy", "tvc_ai_torch.export",
 # data parallel and demonstration seeding
 PARALLEL_DEMO_MODULES = ["tvc_ai_torch.parallel", "tvc_ai_torch.parallel.mesh",
                          "tvc_ai_torch.training.demos"]
+# the distillation chain and its command-line modules
+DISTILL_CLIS = ["dagger_distill", "theta_distill", "select_student", "suite_feasibility",
+                "cross_transfer", "build_ctrl_library", "pilot_eval"]
+DISTILL_MODULES = ["tvc_ai_torch.training.cem", "tvc_ai_torch.training.dagger",
+                   "tvc_ai_torch.training.theta_student", "tvc_ai_torch.training.pilot",
+                   *(f"tvc_ai_torch.{name}" for name in DISTILL_CLIS)]
 
 
-@pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES)
+@pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
+                         + DISTILL_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -146,7 +153,10 @@ ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_cr
                 "td3_init", "ppo_init", "ensemble_init_carry", "ensemble_agent",
                 "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init",
                 "sac_agent", "init_population", "safety_net", "load_agent_file",
-                "generate_demonstrations"]
+                "generate_demonstrations", "refine_per_draw",
+                "dagger_init_state", "cem_dagger_state", "theta_state"]
+SMALL_DAGGER = dagger.DaggerConfig(num_envs=2, rollout_steps=2, capacity=8, batch_size=4,
+                                   train_steps=1)
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
 TINY = ["training.total_timesteps=128", "training.num_envs=8", "training.rollout_steps=16",
         "training.eval_episodes=2", "algorithms.sac.hidden_dims=[16,16]",
@@ -199,6 +209,17 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "load_agent_file": lambda: load_agent_state(agent_file(), 10, 2, small).log_alpha,
         "generate_demonstrations": lambda: demos.generate_demonstrations(
             EnvParams(), ANY_DESIGN, 2, 1)[0]["obs"],
+        "refine_per_draw": lambda: cem.refine_per_draw(
+            EnvParams(), rocket_env.reset(EnvParams(), 2)[0],
+            torch.zeros(2, cem.THETA_DIM, device="cuda"),
+            cem.CEMConfig(pop=2, elites=1, generations=1, horizon=2))[0],
+        "dagger_init_state": lambda: dagger.init_state(
+            EnvParams(), sac.make_actor(10, 2, small, AGENT_DEVICE), SMALL_DAGGER, 10, 2).data_obs,
+        "cem_dagger_state": lambda: dagger.init_cem_state(
+            sac.make_actor(10, 2, small, AGENT_DEVICE), SMALL_DAGGER, 10, 2).data_w,
+        "theta_state": lambda: theta_student.init_theta_state(
+            theta_student.ThetaDaggerConfig(num_envs=2, rollout_steps=2, capacity=8,
+                                            history_len=1, hidden_dims=(8,)), 10).data_theta,
     }
 
     def agent_file():
@@ -362,7 +383,7 @@ def test_port_reads_no_yaml_of_the_jax_package():
         "    build.build_loop_config(cfg)\n"
         "loader.load_config(None)\n"
         "assert opened and all(p.startswith(str(root)) for p in opened), opened\n"
-        "assert len(names) == 16, names\n"
+        "assert len(names) == 17, names\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -494,3 +515,110 @@ def test_chip_smoke_refuses_without_cuda():
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# each distillation command's smallest run (the card's host runs it)
+DISTILL_TINY = {
+    "dagger_distill": ["--iters", "1", "--envs", "2", "--rollout_steps", "2", "--train_steps",
+                       "1", "--batch", "4", "--history", "2", "--hidden", "8", "8",
+                       "--eval_episodes", "2", "--cem_pop", "2", "--cem_gens", "1",
+                       "--cem_horizon", "2"],
+    "theta_distill": ["--iters", "1", "--envs", "2", "--rollout_steps", "2", "--train_steps",
+                      "1", "--batch", "4", "--history", "2", "--hidden", "8", "8",
+                      "--eval_episodes", "2", "--cem_pop", "2", "--cem_gens", "1",
+                      "--cem_horizon", "2"],
+    "select_student": ["--episodes", "2", "--confirm_episodes", "2", "--history", "2",
+                       "--hidden", "8", "8"],
+    "suite_feasibility": ["--episodes", "2", "--steps", "2", "--suite", "robustness"],
+    "cross_transfer": ["--episodes", "2", "--cem_pop", "2", "--cem_gens", "1",
+                       "--cem_horizon", "2"],
+    "build_ctrl_library": ["--episodes", "2", "--cem_pop", "2", "--cem_gens", "1",
+                           "--cem_horizon", "2"],
+    "pilot_eval": ["--episodes", "2", "--particles", "2", "--steps", "2", "--replan", ""],
+}
+
+
+@pytest.mark.parametrize("name", DISTILL_CLIS)
+def test_distill_commands_default_to_cuda(name, tmp_path):
+    """``python -m tvc_ai_torch.<name>`` asks for CUDA unless ``--cpu`` is
+    given: it raises where there is none, before it writes anything."""
+    main = importlib.import_module(f"tvc_ai_torch.{name}").main
+    argv = list(DISTILL_TINY[name])
+    if name in ("dagger_distill", "theta_distill"):
+        argv += ["--out", str(tmp_path / "out")]
+    elif name == "select_student":
+        argv += ["--dir", str(tmp_path / "out")]
+    elif name == "build_ctrl_library":
+        argv += ["--out", str(tmp_path / "lib.npz")]
+    if torch.cuda.is_available():
+        if name == "select_student":
+            dagger.save_student(tmp_path / "out" / "student.pt",
+                                sac.make_actor(32, 2, sac.SACConfig((8, 8)), "cuda"),
+                                sac.SACConfig((8, 8)), 32, 2)
+        assert main(argv) in (0, 1)   # 1: no draw solved, as the reference says
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+        assert not (tmp_path / "out").exists()
+
+
+def test_distill_paths_reach_physics_only_through_k1(monkeypatch):
+    """The schedule's verification, the CEM scoring, both DAgger iterations,
+    the θ-student's and the pilot (prediction, selection, replan) integrate
+    through K1's wrapper, never the plain integrator, and every input K1
+    gets passes its check (dtype, shape, contiguity, 16-byte alignment: the
+    wrapper checks them on the CPU route too)."""
+    from tvc_ai_torch.env.types import RandomizationConfig
+    from tvc_ai_torch.ops import step_kernel as k1
+
+    calls = []
+
+    def wrapper(state, control, params, *args, **kwargs):
+        calls.append(state.pos.shape[0])
+        return k1.step_kernel(state, control, params, *args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a distillation path called the plain integrator")
+
+    gen = torch.Generator().manual_seed(0)
+    params = EnvParams(randomization=RandomizationConfig(enabled=True, sensor_noise_enabled=True),
+                       drift_obs_enabled=True, action_obs_enabled=True, max_episode_steps=3)
+    # the design's linearization is the plain step map on the host, by design
+    sched = demos.design_lqr_schedule(params, 2, 2, verify=False)
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(pilot, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    # the verification: 2 × 2 cells × 4 variants × 1 rollout, 3 steps
+    demos.design_lqr_schedule(params, 2, 2, verify_rollouts=1, verify_horizon=3, device="cpu",
+                              generator=gen)
+    assert calls == [16] * 3
+    calls.clear()
+    states, obs = rocket_env.reset(params, 3, "cpu", generator=gen)
+    ccfg = cem.CEMConfig(pop=2, elites=1, generations=2, horizon=3)
+    cem.refine_per_draw(params, states, cem.theta_for_states(sched, states), ccfg, generator=gen)
+    assert calls == [6] * 6
+    calls.clear()
+    small = sac.SACConfig((8, 8))
+    dcfg = dagger.DaggerConfig(num_envs=3, rollout_steps=2, capacity=6, batch_size=4,
+                               train_steps=1, history_len=2)
+    actor = sac.make_actor(32, 2, small, "cpu")
+    state = dagger.init_state(params, actor, dcfg, 16, 2, "cpu", gen)
+    dagger.make_dagger_iteration(params, lambda s: torch.zeros(3, 2), small, dcfg, 16, 2)(
+        state, 0.5, generator=gen)
+    dagger.make_cem_dagger_iteration(params, sched, small, dcfg, 16, 2, ccfg)(
+        dagger.init_cem_state(actor, dcfg, 16, 2, "cpu"), 0.5, generator=gen)
+    tcfg = theta_student.ThetaDaggerConfig(num_envs=3, rollout_steps=2, capacity=6,
+                                           batch_size=4, train_steps=1, history_len=2,
+                                           hidden_dims=(8,))
+    theta_student.make_theta_dagger_iteration(params, sched, tcfg, 16, ccfg)(
+        theta_student.init_theta_state(tcfg, 16, "cpu"), 0.5, generator=gen)
+    assert calls == [3] * 2 + ([6] * 6 + [3] * 2) * 2
+    calls.clear()
+    pcfg = pilot.PilotConfig(particles=4)
+    ps = pilot.init_pilot(obs, params, pcfg, generator=gen)
+    ps, act = pilot.pilot_act(ps, sched, params, pcfg)
+    ps = pilot.pilot_observe(ps, obs, params, pcfg, generator=gen)
+    ps = pilot.select_from_library(ps, torch.zeros(5, cem.THETA_DIM), params, ccfg, states,
+                                   n_samples=2, generator=gen)
+    pilot.replan(ps, sched, params, ccfg, states, generator=gen)
+    assert calls == [12] + [30] * 3 + [6] * 6

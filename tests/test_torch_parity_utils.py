@@ -41,6 +41,7 @@ consumes, so both packages can be fed the same numbers:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -57,6 +58,7 @@ from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws
 from tvc_ai_tpu.agents import replay as j_replay
 from tvc_ai_tpu.env import rocket_env as j_env
 from tvc_ai_tpu.env.types import EnvParams, RandomizationConfig, RewardConfig, SuccessConfig
+from tvc_ai_tpu.physics import quaternion as j_quat
 
 torch.set_num_threads(1)
 
@@ -557,3 +559,109 @@ def record_env_keys_sharded(fn, world: int, vmapped: bool):
         out = fn()
         jax.effects_barrier()
     return out, {r: np.stack(v) for r, v in keys.items()}
+
+
+def jax_schedule(sched):
+    """A port ``LQRSchedule`` (tensors) as the JAX package's (jnp arrays)."""
+    from tvc_ai_tpu.training import demos as j_demos
+
+    fields = j_demos.LQRSchedule._fields
+    return j_demos.LQRSchedule(**{f: None if getattr(sched, f) is None
+                                  else jnp.asarray(getattr(sched, f).numpy()) for f in fields})
+
+
+def jax_body(body):
+    """A port ``RigidBodyState`` (CPU tensors) as the JAX package's."""
+    from tvc_ai_tpu.physics.types import RigidBodyState as JBody
+
+    return JBody(**{f: jnp.asarray(getattr(body, f).numpy())
+                    for f in ("pos", "quat", "vel", "omega")})
+
+
+def random_bodies(rng, n: int, tilt: float = 0.15, z: float = 0.5):
+    """(numpy dict, port RigidBodyState) of n random near-upright bodies."""
+    from tvc_ai_torch.physics.types import RigidBodyState as TBody
+
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    half = rng.uniform(0.0, tilt, size=(n, 1))
+    body = dict(pos=rng.normal(0.0, 0.3, size=(n, 3)) + [0.0, 0.0, z],
+                quat=np.concatenate([axis * np.sin(half), np.cos(half)], axis=1),
+                vel=rng.normal(0.0, 0.5, size=(n, 3)), omega=rng.normal(0.0, 0.5, size=(n, 3)))
+    body = {k: v.astype(np.float32) for k, v in body.items()}
+    return body, TBody(**{k: torch.from_numpy(v) for k, v in body.items()})
+
+
+@contextlib.contextmanager
+def recording_batched_keys():
+    """Within the block, the env keys of every ``rocket_env.batched_step_autoreset``
+    call a JAX program traced in it makes are appended (in order) to the
+    yielded list, also on the program's later calls: clear it between calls."""
+    keys, original = [], j_env.batched_step_autoreset
+
+    def recording(states, actions, params, **kw):
+        jax.debug.callback(lambda k: keys.append(np.asarray(k)), states.key, ordered=True)
+        return original(states, actions, params, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_env, "batched_step_autoreset", recording)
+        yield keys
+        jax.effects_barrier()
+
+
+def normal_chain_noise(key, steps: int, n: int) -> torch.Tensor:
+    """The controller's IMU noise ``cem.rollout_score(.., key)`` draws with
+    ``obs_noise_std > 0``: per step ``k, kq, kw = split(k, 3)``, then
+    normal(kq, (n, 4)) and normal(kw, (n, 3)); returns (steps, n, 7)."""
+    out = []
+    for _ in range(steps):
+        key, kq, kw = jax.random.split(key, 3)
+        out.append(np.concatenate([np.asarray(jax.random.normal(kq, (n, 4))),
+                                   np.asarray(jax.random.normal(kw, (n, 3)))], axis=-1))
+    return torch.from_numpy(np.stack(out))
+
+
+def cem_draws(key, cfg, draws: int):
+    """The draws ``cem.refine_per_draw(key, ..)`` consumes: per generation
+    ``key, k_noise, k_obs = split(key, 3)``, normal(k_noise, (D, P, 15)) and,
+    with obs noise, ``normal_chain_noise(k_obs, ..)``."""
+    from tvc_ai_torch.training.cem import THETA_DIM, CEMDraws
+
+    noise, obs = [], []
+    for _ in range(cfg.generations):
+        key, k_noise, k_obs = jax.random.split(key, 3)
+        noise.append(np.asarray(jax.random.normal(k_noise, (draws, cfg.pop, THETA_DIM))))
+        if cfg.obs_noise_std > 0.0:
+            obs.append(normal_chain_noise(k_obs, cfg.horizon, draws * cfg.pop))
+    return CEMDraws(noise=torch.from_numpy(np.stack(noise)),
+                    obs_noise=torch.stack(obs) if obs else None)
+
+
+def verify_params(jp: EnvParams) -> EnvParams:
+    """The verification's env: randomization and noise off."""
+    return jp.replace(randomization=jp.randomization.replace(
+        enabled=False, sensor_noise_enabled=False, sensor_noise_uniform=False,
+        progress_rate_randomized=False))
+
+
+def verify_draws(jp: EnvParams, rows: int, key=None):
+    """The draws of ``_verify_rollouts(.., key)``: the reset's of
+    ``split(key, rows)`` and each row's axis angle ``uniform(k, (), 0, 2π)``."""
+    keys = jax.random.split(jax.random.PRNGKey(0) if key is None else key, rows)
+    ang = jax.vmap(lambda k: jax.random.uniform(k, (), minval=0.0, maxval=2.0 * jnp.pi))(keys)
+    return KeyChain(verify_params(jp)).reset(keys), torch.from_numpy(np.array(ang)), keys
+
+
+def jax_verify_start(jp, mass_r, tsc_r, keys, tilt0):
+    """The reference's ``_verify_rollouts`` start (reset, the row's plant, tilt)."""
+    n = mass_r.shape[0]
+    states, _ = jax.vmap(j_env.reset, in_axes=(0, None))(keys, jp)
+    zeros3 = jnp.zeros((n, 3), jnp.float32)
+    states = states.replace(dr=states.dr.replace(mass=mass_r, thrust_scale=tsc_r,
+                                                 cg_offset=zeros3, wind=zeros3))
+    ang = jax.vmap(lambda k: jax.random.uniform(k, (), minval=0.0, maxval=2.0 * jnp.pi))(keys)
+    axis = jnp.stack([jnp.cos(ang), jnp.sin(ang), jnp.zeros_like(ang)], -1)
+    half = jnp.float32(tilt0 / 2.0)
+    dq = jnp.concatenate([axis * jnp.sin(half), jnp.full((n, 1), jnp.cos(half))], -1)
+    return states.replace(body=states.body.replace(
+        quat=jax.vmap(j_quat.multiply)(dq, states.body.quat)))

@@ -134,6 +134,16 @@ def _optax_schedule(name: str, lr: float, cfg: j_sac.SACConfig):
     }[name]
 
 
+@pytest.mark.parametrize("alpha", [0.0, 0.1])
+def test_cosine_decay_matches_optax(alpha):
+    """``cosine_decay`` with its floor (``alpha``; the distillation CLIs'
+    ``--lr_cosine`` uses 0.1) against optax's schedule across its range."""
+    lr, steps = 3e-2, 40
+    ref = optax.cosine_decay_schedule(lr, steps, alpha=alpha)
+    sched = t_optim.cosine_decay(lr, steps, alpha=alpha)
+    for count in (0, 1, 3, 7, 20, 39, 40, 41, 100):
+        assert sched(count) == pytest.approx(float(ref(jnp.int32(count))), rel=1e-6, abs=1e-12), count
+
 @pytest.mark.parametrize("name", t_optim.SCHEDULES)
 def test_schedule_and_clipped_adam_match_optax(name):
     """Each schedule's value at counts across its range, then six steps of

@@ -456,12 +456,21 @@ def test_robust_metric_requires_robust_eval(tmp_path):
 
 @pytest.mark.parametrize("option", ["warm_start", "demo_seeding"])
 def test_unported_trainer_options_raise(tmp_path, option):
-    """warm_start_actor still raises; demo_seeding is ported and seeds the
-    replay (its parity is in tests/test_torch_demos.py)."""
+    """Both options are ported now and no longer raise: warm_start_actor
+    reads the port's own student file and sets the actor from it (its
+    refusals and the fine-tune config are in tests/test_torch_distill_cli.py),
+    demo_seeding seeds the replay (its parity is in tests/test_torch_demos.py)."""
     if option == "warm_start":
-        with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
-            Trainer(tiny_cfg(tmp_path, extra=["training.warm_start_actor=student.msgpack"]),
-                    output_dir=tmp_path / "x", device="cpu")
+        from tvc_ai_torch.agents import sac as sac_mod
+        from tvc_ai_torch.training.dagger import save_student
+
+        student = sac_mod.make_actor(10, 2, sac_mod.SACConfig((16, 16)), "cpu", seed=3)
+        save_student(tmp_path / "student.pt", student, sac_mod.SACConfig((16, 16)), 10, 2)
+        t = Trainer(tiny_cfg(tmp_path, extra=[
+            f"training.warm_start_actor={tmp_path / 'student.pt'}"]),
+            output_dir=tmp_path / "x", device="cpu")
+        assert diff_states(t.carry.agent.actor, student) == []
+        t.logger.close()
         return
     extra = ["training.demo_seeding.enabled=true", "training.demo_seeding.envs=8",
              "training.demo_seeding.steps=4"]

@@ -124,16 +124,6 @@ def make_schedule(
             return float(f32(init - end) * frac + f32(end))
         return fn
 
-    def cosine(init: float, steps: int) -> Callable[[int], float]:
-        if steps <= 0:
-            raise ValueError(f"cosine decay needs positive decay steps, got {steps}")
-
-        def fn(count: int) -> float:
-            c = f32(min(count, steps))
-            decay = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * c / f32(steps)))
-            return float(f32(init) * decay)
-        return fn
-
     if name == "linear":
         return linear(lr, 0.0, total_steps)
     if name == "exponential":
@@ -146,9 +136,23 @@ def make_schedule(
             return float(f32(lr) * f32(0.5) ** p)
         return exponential
     if name == "cosine":
-        return cosine(lr, total_steps)
+        return cosine_decay(lr, total_steps)
     if name == "warmup_cosine":
         warm = linear(lr * initial_lr_factor, lr, warmup_steps)
-        decay = cosine(lr, max(total_steps, warmup_steps + 1) - warmup_steps)
+        decay = cosine_decay(lr, max(total_steps, warmup_steps + 1) - warmup_steps)
         return lambda count: warm(count) if count < warmup_steps else decay(count - warmup_steps)
     raise ValueError(f"unknown lr_schedule {name!r}")
+
+
+def cosine_decay(lr: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """optax ``cosine_decay_schedule(lr, decay_steps, alpha)``: lr → lr·alpha
+    along a half cosine over ``decay_steps`` counts, then flat (float32)."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay steps, got {decay_steps}")
+    f32 = np.float32
+
+    def fn(count: int) -> float:
+        c = f32(min(count, decay_steps))
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * c / f32(decay_steps)))
+        return float(f32(lr) * ((f32(1.0) - f32(alpha)) * cosine + f32(alpha)))
+    return fn

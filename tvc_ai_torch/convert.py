@@ -102,6 +102,12 @@ def safety_net_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return _dense_layers(params)
 
 
+def theta_net_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``training.theta_student.ThetaNet`` state dict (``Dense_0``, …) from
+    flax θ-net params."""
+    return _dense_layers(params)
+
+
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.float64:

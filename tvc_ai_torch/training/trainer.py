@@ -57,8 +57,10 @@ another branch and hang in the next collective:
 
 ``training.demo_seeding`` and ``training.warm_start_actor`` are
 single-device, as in the reference (``ValueError`` at a world above 1).
-Not ported, raising ``NotImplementedError``: ``training.warm_start_actor``
-(it reads a flax msgpack).
+``training.warm_start_actor`` reads the port's own student artifact (a
+``SACAgent.save``-form file, which ``python -m tvc_ai_torch.dagger_distill``
+writes); a flax msgpack student of the JAX package raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ import torch
 
 from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac as sac_mod
+from tvc_ai_torch.agents.legacy import read_agent_file
 from tvc_ai_torch.config.build import build_env_params, build_loop_config, build_sac_config
 from tvc_ai_torch.config.schema import FrameworkConfig
 from tvc_ai_torch.eval.rollout import make_eval_fn, make_hier_eval_fn, summarize_stats
@@ -95,13 +98,8 @@ def check_supported(cfg: FrameworkConfig, world: int) -> None:
     """Refuse the options this trainer does not run at ``world`` processes:
     the reference's ``ValueError``s, and ``NotImplementedError`` for what is
     not ported."""
-    if cfg.training.warm_start_actor:
-        if world > 1:
-            raise ValueError("training.warm_start_actor is single-device for now")
-        raise NotImplementedError(
-            "training.warm_start_actor reads a flax msgpack student, which this "
-            "package does not read (its distillation scripts wait for ROADMAP module 12)"
-        )
+    if cfg.training.warm_start_actor and world > 1:
+        raise ValueError("training.warm_start_actor is single-device for now")
     if cfg.training.demo_seeding.enabled and cfg.hierarchical_rl.enabled:
         raise ValueError(
             "training.demo_seeding does not support hierarchical mode "
@@ -262,6 +260,8 @@ class Trainer:
         # ---- state
         self.timer = StageTimer()
         self.carry = init_fn(self._next_seed())
+        if cfg.training.warm_start_actor:
+            self._warm_start_actor(cfg.training.warm_start_actor)
         self.stability.register_initial_params(self.carry.agent.actor)
         if cfg.training.demo_seeding.enabled:
             # a resume restores both buffers into the structure made here
@@ -292,6 +292,35 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _warm_start_actor(self, path: str | Path) -> None:
+        """Replace the fresh actor (and its EMA shadow) with a distilled
+        student's: the actor of a ``SACAgent.save``-form file (the
+        ``student.pt`` that ``python -m tvc_ai_torch.dagger_distill``
+        writes). The critic, the targets and the optimizers stay fresh, as
+        in the reference: the critic must learn the student's values from
+        data, and a stale Adam state would move the distilled weights at
+        once. A flax msgpack file raises ``NotImplementedError``."""
+        if self.world > 1:
+            raise ValueError("training.warm_start_actor is single-device for now")
+        state = read_agent_file(path, self.device)["state"]
+        student = state["actor"]["__module_state__"]
+        actor = self.carry.agent.actor
+
+        def shapes(sd):
+            return {k: tuple(v.shape) for k, v in sd.items()}
+
+        if shapes(student) != shapes(actor.state_dict()):
+            raise ValueError(
+                f"warm_start_actor {str(path)!r}: actor shape mismatch — the "
+                f"student was trained with a different view "
+                f"(obs_dim × history) or hidden_dims than this config. "
+                f"student={shapes(student)} vs trainer={shapes(actor.state_dict())}")
+        actor.load_state_dict(student)
+        ema = self.carry.agent.ema_actor
+        if ema is not None:
+            ema.load_state_dict(student)
+        self.logger.info("actor warm-started from %s", path)
 
     def _seed_demonstrations(self, generate: bool = True) -> None:
         """Seed the replay with LQR ground-balance demonstrations
