@@ -47,8 +47,8 @@ port's own ``config/default.yaml``. [9a] holds the evaluation rollout
 (``eval.rollout.make_eval_fn``, 20 episodes, the default training env) on
 the card against the CPU over 64 steps, times and profiles the eval step at
 N = 20, counts how many outcomes differ over the full 1000-step horizon, and
-holds K1 against its plain version at N = 2, 20 and 50 beside its launch
-floor there. [9] runs ``training.trainer.Trainer`` at the default
+holds K1 against its plain version at N = 1 (in flight and in contact), 2, 20
+and 50 beside its launch floor there. [9] runs ``training.trainer.Trainer`` at the default
 configuration for 2 iterations of 4096 envs x 128 steps with an eval round
 after each (per-stage seconds from its ``StageTimer``, train env steps/s,
 eval metrics, checkpoint bytes and save seconds), resumes from its final
@@ -170,9 +170,30 @@ episodes x 32 particles x 16 steps) and runs ``python -m
 tvc_ai_torch.pilot_eval`` at 512 episodes x 192 particles for 64 steps with
 one library selection.
 
+Phases [17a]-[17c] drive the single-env surface, where every step is K1 at
+N = 1. [17a] flies ``RocketTVCEnv`` (sensor noise on, seeded actions, DR off
+so it climbs clear of the ground) for consecutive episodes of 1,000 steps in
+all, each from its own reset draws, and ``EnhancedRocketTVCEnv`` (curiosity on, its ICM carried across;
+sensor noise on, zero actions) for one episode of up to 1,000 steps, on the
+card and on the CPU from the same reset and IMU draws (obs 5e-5 / 5e-4,
+reward 1e-3, flags and lengths exact), through the gym classes where
+gymnasium imports and through their gymnasium-free bases
+(``env.single.RocketTVC`` / ``EnhancedRocketTVC``, the same reset and step)
+where it does not, and prints ms per step, device-to-host reads per step and
+K1 launches. [17b] runs ``tests/test_integration.py``'s mini training on the
+card (``RocketTVCEnv`` + ``agents.legacy.SACAgent`` 32x32, 3 episodes x 60
+steps). [17c] runs the six research diagnostics through ``main([...])`` at a
+cut depth: ``lqr_balance`` and ``scripted_controller`` at one CG offset
+against the same call with ``--cpu`` (exit codes and result lines equal,
+verbose lines within 0.02, the step where they part printed),
+``inspect_policy`` and ``diagnose_cg`` on [9]'s trained actor,
+``policy_breakdown`` on [16c]'s ``student.pt`` and ``ablate_dr`` on [9]'s
+checkpoint at 64 episodes and a 128-step horizon (patched into the env
+parameters they build where they have no flag for it).
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
-K1's time and launch floor at N = 2, 20, 50, the eval step's ms and the
+K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
 launches of each path, the ensemble's included, beside the contract's keys;
 ``launches`` is the trainer's, [9]); and, as the last line, ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code not 0, no result line); so
@@ -187,8 +208,10 @@ import dataclasses
 import gc
 import hashlib
 import importlib.util
+import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -211,7 +234,7 @@ from tvc_ai_torch.config import (
 )
 from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
-from tvc_ai_torch.env.wrappers import RocketConfig
+from tvc_ai_torch.env.single import RocketConfig
 from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state, run_all_suites
 from tvc_ai_torch import dagger_distill, pilot_eval
 from tvc_ai_torch.eval.rollout import (
@@ -2952,6 +2975,334 @@ def run_pilot_eval(dev) -> int:
     return launches
 
 
+# ---- [17] the single-env surface: the gym envs (or their gymnasium-free
+# classes), the legacy mini training, the six research diagnostics
+SINGLE_HORIZON = 1000          # [17a] the legacy env's steps in all; the enhanced env's
+                               # episode's horizon (the envs' default)
+SINGLE_AMP = 0.05              # [17a] the legacy episodes' seeded actions, uniform +-0.05
+LEGACY_MINI = dict(episodes=3, steps=60, hidden=[32, 32])   # [17b] tests/test_integration.py's
+# [17c] each CLI's arguments, its depth cut, and whether its --cpu run is compared
+PROBE_CG, PROBE_STEPS = "0.01", "300"          # cut from the defaults' 4-5 offsets x 900 steps
+DIAG_EPISODES, DIAG_HORIZON, DIAG_STEPS = 64, 128, 200
+PROBE_BAR = 0.02   # [17c] a verbose line's number card vs --cpu: two units of its 0.01 print
+
+
+def single_env_classes() -> tuple[type, type, str]:
+    """``(RocketTVCEnv, EnhancedRocketTVCEnv, why)`` where gymnasium imports,
+    else their gymnasium-free classes ``env.single.RocketTVC`` /
+    ``EnhancedRocketTVC``, whose reset and step the gym classes inherit."""
+    try:
+        import gymnasium
+        from tvc_ai_torch.env.wrappers import EnhancedRocketTVCEnv, RocketTVCEnv
+    except ImportError as exc:
+        from tvc_ai_torch.env.single import EnhancedRocketTVC, RocketTVC
+
+        return RocketTVC, EnhancedRocketTVC, f"gymnasium does not import here ({exc})"
+    return RocketTVCEnv, EnhancedRocketTVCEnv, f"gymnasium {gymnasium.__version__} imports"
+
+
+def fly_single_env(env, resets: list, actions: np.ndarray, n_imu: torch.Tensor,
+                   horizon: int, one_episode: bool) -> list:
+    """Episodes of ``env`` from ``resets[k]`` (one env's ``ResetDraws``) with
+    step t's action ``actions[t]`` and IMU draw ``n_imu[t]``, until
+    ``horizon`` steps in all, or the first episode's end if ``one_episode``.
+    Returns one row per reset or step: (obs, reward, terminated, truncated,
+    info)."""
+    at = iter(range(horizon))
+    env.step_draws = lambda: (n_imu[next(at)], None)
+    rows, t = [], 0
+    for reset_draws in resets:
+        obs, _ = env.reset(options={"reset_draws": reset_draws})
+        rows.append((obs, 0.0, False, False, None))
+        while t < horizon:
+            rows.append(env.step(actions[t]))
+            t += 1
+            if rows[-1][2] or rows[-1][3]:
+                break
+        if one_episode or t == horizon:
+            return rows
+    raise AssertionError(f"{len(resets)} resets ran out at step {t}")
+
+
+def single_env_card_vs_cpu(dev) -> dict:
+    """[17a]: ``RocketTVCEnv`` (sensor noise on, seeded actions) flies
+    consecutive episodes, each from its own reset draws, for 1,000 steps in
+    all, and ``EnhancedRocketTVCEnv`` (curiosity on, sensor noise on, zero
+    actions: it stands to a mission success) one episode of up to 1,000
+    steps, on the card and on the CPU from the same reset and IMU draws.
+    The legacy env flies with DR off: at its nominal mass it lifts off and
+    climbs to the altitude ceiling in 150-200 steps, clear of the ground,
+    where a crash through contact amplifies K1's rounding past the obs bar
+    within 30 steps (seen at DR on); K1 with random DR rows at N = 1 is
+    held in [9a]. Held: obs 5e-5 / 5e-4, reward 1e-3, the flags and every
+    episode's length exact; K1 at N = 1 once per card step, one
+    device-to-host read per reset and step. Returns the K1 launches by env."""
+    legacy_cls, enhanced_cls, why = single_env_classes()
+    log(f"[17a] single-env classes: {legacy_cls.__module__}.{legacy_cls.__name__} / "
+        f"{enhanced_cls.__name__} ({why})")
+    cpu = torch.device("cpu")
+    launches = {}
+    for name, cls, amp in (("RocketTVCEnv", legacy_cls, SINGLE_AMP),
+                           ("EnhancedRocketTVCEnv", enhanced_cls, 0.0)):
+        legacy = cls is legacy_cls
+        gen = torch.Generator().manual_seed(SEED + 70)
+        rng = np.random.default_rng(SEED + 70)
+        actions = rng.uniform(-amp, amp, size=(SINGLE_HORIZON, 2)).astype(np.float32)
+        n_imu = torch.randn((SINGLE_HORIZON, 7), generator=gen)
+        host_env = cls(sensor_noise=True, seed=SEED, device=cpu)
+        resets = [rocket_env.draw_reset(host_env.core.params, 1, cpu, gen)
+                  for _ in range(SINGLE_HORIZON if legacy else 1)]
+        runs = {}
+        for side, where in (("cpu", cpu), ("card", dev)):
+            env = host_env
+            if side == "card":
+                env = cls(sensor_noise=True, seed=SEED, device=dev)
+                if not legacy:   # the CPU env's ICM carried across
+                    env._icm.nets.load_state_dict(host_env._icm.nets.state_dict())
+            k1.step_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = fly_single_env(env, resets, actions, n_imu.to(where), SINGLE_HORIZON,
+                                  one_episode=not legacy)
+            runs[side] = dict(rows=rows, secs=time.perf_counter() - t0,
+                              launches=k1.step_kernel.launches, reads=env.core.reads)
+        a, b = runs["card"], runs["cpu"]
+        episodes = sum(r[4] is None for r in b["rows"])
+        steps = len(b["rows"]) - episodes
+        assert len(a["rows"]) == len(b["rows"]), f"{name}: rows card {len(a['rows'])} " \
+                                                 f"vs CPU {len(b['rows'])}"
+        d_obs = d_rew = d_icm = top = of_bar = 0.0
+        for t, (ra, rb) in enumerate(zip(a["rows"], b["rows"])):
+            assert (ra[4] is None) == (rb[4] is None), f"{name} row {t}: the episodes part"
+            torch.testing.assert_close(torch.from_numpy(ra[0]), torch.from_numpy(rb[0]),
+                                       msg=f"{name} row {t} obs", **OBS)
+            torch.testing.assert_close(torch.tensor(ra[1]), torch.tensor(rb[1]),
+                                       msg=f"{name} row {t} reward", **REWARD)
+            assert ra[2:4] == rb[2:4], f"{name} row {t} flags card {ra[2:4]} vs CPU {rb[2:4]}"
+            d_obs = max(d_obs, float(np.abs(ra[0] - rb[0]).max()))
+            of_bar = max(of_bar, float((np.abs(ra[0] - rb[0]) / (OBS["atol"] + OBS["rtol"]
+                                                                 * np.abs(rb[0]))).max()))
+            d_rew = max(d_rew, abs(ra[1] - rb[1]))
+            if not legacy and rb[4] is not None:   # the curiosity bonus, held at 1e-5
+                d_icm = max(d_icm, abs(ra[4]["intrinsic_reward"] - rb[4]["intrinsic_reward"]))
+                top = max(top, abs(rb[4]["intrinsic_reward"]))
+        assert d_icm <= 1e-5 + 1e-5 * top, (name, d_icm)
+        bonus = "" if legacy else f", max |d intrinsic_reward| {d_icm:.3e} (its ICM carried across)"
+        assert a["launches"] == steps, (name, a["launches"], steps)
+        assert a["reads"] == steps + episodes, (name, a["reads"], steps, episodes)
+        launches[name] = a["launches"]
+        lengths, ends = [], []
+        for r in b["rows"]:
+            if r[4] is None:
+                lengths.append(0)
+                ends.append("horizon")
+            else:
+                lengths[-1] += 1
+                ends[-1] = ("success" if r[4]["mission_successful"] else "crash"
+                            if r[4]["crashed"] else "truncated" if r[3] else "terminated"
+                            if r[2] else "horizon")
+        log(f"[17a] {name} (sensor noise, "
+            f"{'seeded actions +-' + str(amp) if amp else 'zero actions'}): {episodes} "
+            f"episode(s), {steps} steps (lengths {min(lengths)}-{max(lengths)}, ends "
+            f"{ {e: ends.count(e) for e in sorted(set(ends))} }), card (K1 at N = 1) vs CPU: "
+            f"max |d obs| {d_obs:.3e} ({of_bar:.3f} of its bar at worst), max |d reward| "
+            f"{d_rew:.3e}{bonus}, flags and lengths "
+            f"equal: ok; card {a['secs'] / (steps + episodes) * 1e3:.3f} ms per reset or step "
+            f"on the host clock, {a['reads'] / (steps + episodes):.2f} device-to-host reads per "
+            f"reset or step, K1 launches {a['launches']} == steps taken; CPU "
+            f"{b['secs'] / (steps + episodes) * 1e3:.3f} ms")
+    return launches
+
+
+def legacy_mini_training(dev) -> int:
+    """[17b]: ``tests/test_integration.py``'s mini training on the card:
+    ``RocketTVCEnv`` + ``agents.legacy.SACAgent`` (32x32), 3 episodes x 60
+    steps, one update per step once 32 transitions are stored. Returns its
+    K1 launches."""
+    from tvc_ai_torch.agents.legacy import SACAgent, SACConfig
+
+    legacy_cls, _, _ = single_env_classes()
+    c = LEGACY_MINI
+    env = legacy_cls(max_episode_steps=c["steps"], seed=SEED, device=dev)
+    agent = SACAgent(8, 2, SACConfig(hidden_dims=c["hidden"], batch_size=16, buffer_size=4096,
+                                     learning_starts=32), seed=SEED, device=dev)
+    k1.step_kernel.launches = 0
+    rewards, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["episodes"]):
+        obs, _ = env.reset()
+        total = 0.0
+        for _ in range(c["steps"]):
+            action = agent.select_action(obs)
+            next_obs, reward, terminated, truncated, _ = env.step(action)
+            agent.store_transition(obs, action, reward, next_obs, terminated or truncated)
+            agent.train()
+            total += reward
+            obs = next_obs
+            steps += 1
+            if terminated or truncated:
+                break
+        rewards.append(total)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert all(math.isfinite(r) for r in rewards) and agent.total_steps > 0, rewards
+    assert k1.step_kernel.launches == steps, (k1.step_kernel.launches, steps)
+    log(f"[17b] legacy mini training on the card ({legacy_cls.__name__} + SACAgent "
+        f"{c['hidden']}, {c['episodes']} episodes x up to {c['steps']} steps): {steps} env "
+        f"steps, {agent.total_steps} agent steps, rewards "
+        f"{', '.join(f'{r:.1f}' for r in rewards)} (finite) in {secs:.3f} s = "
+        f"{secs / steps * 1e3:.3f} ms per env step + update; K1 launches "
+        f"{k1.step_kernel.launches} == env steps")
+    return steps
+
+
+def captured_main(main, argv) -> tuple[int, str, float]:
+    """A CLI's exit code, standard output and seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def compare_probe_runs(name: str, card: str, cpu: str) -> str:
+    """[17c]: a probe's card output against its ``--cpu`` output. The result
+    lines (``cg=...``) must be equal; each verbose line's numbers agree
+    within ``PROBE_BAR``. Returns what differs as text: the count of lines
+    that differ as printed and the ``t=`` at which the runs part."""
+    card_lines, cpu_lines = card.rstrip().splitlines(), cpu.rstrip().splitlines()
+    assert len(card_lines) == len(cpu_lines), (name, card_lines, cpu_lines)
+    results = [(x, y) for x, y in zip(card_lines, cpu_lines) if y.startswith("cg=")]
+    assert results and all(x == y for x, y in results), (name, results)
+    number = r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?"
+    differ = []
+    for x, y in zip(card_lines, cpu_lines):
+        if x == y:
+            continue
+        nx, ny = re.findall(number, x), re.findall(number, y)
+        assert re.sub(number, "#", x) == re.sub(number, "#", y), (name, x, y)
+        worst = max(abs(float(u) - float(v)) for u, v in zip(nx, ny))
+        assert worst <= PROBE_BAR, f"{name}: card {x!r} vs CPU {y!r} part by {worst}"
+        differ.append(re.search(r"t=\s*(\d+)", y))
+    if not differ:
+        return f"all {len(cpu_lines)} lines equal"
+    at = differ[0].group(1) if differ[0] else "?"
+    return (f"{len(differ)} of {len(cpu_lines)} lines differ as printed, every number within "
+            f"{PROBE_BAR}; the runs part at t={at}")
+
+
+def run_single_env_clis(scratch: Path, student_path: Path) -> dict:
+    """[17c]: the six research diagnostics through ``main([...])`` on the
+    card at a cut depth: ``lqr_balance`` and ``scripted_controller`` at one
+    CG offset and 300 steps (their own ``--steps``), each against the same
+    call with ``--cpu`` (the result lines and exit codes equal, the verbose
+    lines within ``PROBE_BAR``); ``inspect_policy`` and ``diagnose_cg`` on
+    [9]'s trained actor at 200 steps; ``policy_breakdown`` on [16c]'s
+    ``student.pt`` and ``ablate_dr`` on [9]'s checkpoint at 64 episodes and
+    a 128-step horizon. Where a CLI has no flag for the horizon, the cut
+    patches the env parameters it builds, as the CPU tests do. Returns each
+    CLI's K1 launches."""
+    from unittest import mock
+
+    from tvc_ai_torch import (ablate_dr, diagnose_cg, inspect_policy, lqr_balance,
+                              policy_breakdown, scripted_controller)
+
+    def horizon_cut(fn, steps: int, at: int = 1):
+        """``fn`` with its ``at``-th argument's ``max_episode_steps`` cut."""
+        def cut(*args, **kwargs):
+            args = list(args)
+            args[at] = dataclasses.replace(args[at], max_episode_steps=steps)
+            return fn(*args, **kwargs)
+        return cut
+
+    def suite_cut(*args, **kwargs):
+        params = suite_params(*args, **kwargs)
+        return dataclasses.replace(params, max_episode_steps=DIAG_HORIZON)
+
+    suite_params, axes = policy_breakdown.suite_params, ablate_dr.axes
+    ckpt = str(scratch / "run1" / "checkpoints")
+    probe = ["--cg", PROBE_CG, "--steps", PROBE_STEPS, "--verbose"]
+    none = contextlib.nullcontext()
+    runs = {
+        "lqr_balance": (lqr_balance.main, probe, none,
+                        f"--cg {PROBE_CG} (from 5 offsets), --steps {PROBE_STEPS} (from 900)"),
+        "scripted_controller": (scripted_controller.main, probe, none,
+                                f"--cg {PROBE_CG} (from 4 offsets), --steps {PROBE_STEPS} "
+                                "(from 900)"),
+        "inspect_policy": (inspect_policy.main, ["--model_path", ckpt, "--episodes", "1"],
+                           mock.patch.object(inspect_policy, "inspect", horizon_cut(
+                               inspect_policy.inspect, DIAG_STEPS)),
+                           f"--episodes 1 (from 3), the horizon {DIAG_STEPS} steps (from 1000)"),
+        "diagnose_cg": (diagnose_cg.main, ["--model_path", ckpt, "--cg", "0.02", "--steps",
+                                           str(DIAG_STEPS)], none,
+                        f"--cg 0.02 (from 4 offsets), --steps {DIAG_STEPS} (from 1000)"),
+        "policy_breakdown": (policy_breakdown.main,
+                             ["--model", str(student_path), "--episodes", str(DIAG_EPISODES)],
+                             mock.patch.object(policy_breakdown, "suite_params", suite_cut),
+                             f"--episodes {DIAG_EPISODES} (from 1024), the horizon "
+                             f"{DIAG_HORIZON} steps (from the suite's 2000)"),
+        "ablate_dr": (ablate_dr.main, ["--model_path", ckpt, "--episodes", str(DIAG_EPISODES)],
+                      mock.patch.object(ablate_dr, "axes",
+                                        lambda horizon=1000: axes(DIAG_HORIZON)),
+                      f"--episodes {DIAG_EPISODES} (64, its default), the horizon "
+                      f"{DIAG_HORIZON} steps (from 1000)"),
+    }
+    launches = {}
+    for name, (main, argv, cut_ctx, cut) in runs.items():
+        k1.step_kernel.launches = 0
+        with cut_ctx:
+            rc, out, secs = captured_main(main, argv)
+        launches[name] = k1.step_kernel.launches
+        for line in out.rstrip().splitlines():
+            if line.strip():
+                log(f"[17c] {name}| {line}")
+        assert rc in ((0, 1) if name in ("lqr_balance", "scripted_controller") else (0,)), \
+            (name, rc)
+        assert launches[name] > 0, f"{name} ran no K1 launch"
+        log(f"[17c] python -m tvc_ai_torch.{name}: exit {rc} in {secs:.3f} s, K1 launches "
+            f"{launches[name]}; cut: {cut}")
+        if name in ("lqr_balance", "scripted_controller"):
+            cpu_rc, cpu_out, cpu_secs = captured_main(main, [*argv, "--cpu"])
+            assert rc == cpu_rc, (name, rc, cpu_rc)
+            log(f"[17c] {name} card vs --cpu: exit {rc} == {cpu_rc}, result line equal, "
+                f"{compare_probe_runs(name, out, cpu_out)}; CPU {cpu_secs:.3f} s")
+    return launches
+
+
+def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
+    """[9a]: K1 against its plain version below one block, at N = 1 (the
+    single-env path of [17], in contact too), 2, 20 and 50, each N's time
+    beside the launch floor on its grid. Appends the errors to ``errs``;
+    returns {N: (ms, floor ms)}."""
+    small_n = {}
+    # N = 1 (the single-env path, [17]) in contact too: one env tipped 0.1
+    # rad, its lower end 4.75 cm into the ground
+    state, ctrl, dr = random_physics_batch(1, gen, dev, ground=True)
+    state.pos[0, 2] = 0.45
+    state.quat[0] = torch.tensor([math.sin(0.05), 0.0, 0.0, math.cos(0.05)], device=dev)
+    out = k1.step_kernel(state, ctrl, params, *dr)
+    ref = integrator.step(state, ctrl, params, *dr)
+    torch.cuda.synchronize()
+    assert_body_close(out, ref, CONTACT, "K1 n=1 contact")
+    errs.append(max_abs_diff(out, ref))
+    log(f"[9a] K1 n=1 in contact: max |K1 - plain| = {errs[-1]:.3e} (atol {CONTACT['atol']}, "
+        f"rtol {CONTACT['rtol']}) ok")
+    for n, tol in ((1, FLIGHT), (2, FLIGHT), (20, FLIGHT), (50, FLIGHT)):
+        state, ctrl, dr = random_physics_batch(n, gen, dev, clear=True)
+        out = k1.step_kernel(state, ctrl, params, *dr)
+        ref = integrator.step(state, ctrl, params, *dr)
+        torch.cuda.synchronize()
+        assert_body_close(out, ref, tol, f"K1 n={n}")
+        errs.append(max_abs_diff(out, ref))
+        small_n[n] = (device_ms(lambda: k1.step_kernel(state, ctrl, params, *dr)),
+                      device_ms(lambda: k1.launch_floor(n, dev)))
+        log(f"[9a] K1 n={n}: max |K1 - plain| = {errs[-1]:.3e} (atol {tol['atol']}, rtol "
+            f"{tol['rtol']}) ok; {small_n[n][0]:.5f} ms, launch floor {small_n[n][1]:.5f} ms")
+    return small_n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[], type=Path, metavar="DIR",
@@ -3426,18 +3777,7 @@ def main() -> int:
         f"ms per step), K1 launches {full_eval['cuda_launches']}; CPU "
         f"{full_eval['cpu_s']:.3f} s; max length {int(b.lengths.max())}, success "
         f"{float(a.success.float().mean()):.2f}, crash {float(a.crashed.float().mean()):.2f}")
-    small_n = {}
-    for n, tol in ((2, FLIGHT), (20, FLIGHT), (50, FLIGHT)):
-        state, ctrl, dr = random_physics_batch(n, gen, dev, clear=True)
-        out = k1.step_kernel(state, ctrl, params, *dr)
-        ref = integrator.step(state, ctrl, params, *dr)
-        torch.cuda.synchronize()
-        assert_body_close(out, ref, tol, f"K1 n={n}")
-        errs.append(max_abs_diff(out, ref))
-        small_n[n] = (device_ms(lambda: k1.step_kernel(state, ctrl, params, *dr)),
-                      device_ms(lambda: k1.launch_floor(n, dev)))
-        log(f"[9a] K1 n={n}: max |K1 - plain| = {errs[-1]:.3e} (atol {tol['atol']}, rtol "
-            f"{tol['rtol']}) ok; {small_n[n][0]:.5f} ms, launch floor {small_n[n][1]:.5f} ms")
+    small_n = k1_below_one_block(gen, dev, params, errs)
     del eval_agents, short_eval, full_eval
 
     phase("[9]")
@@ -3530,6 +3870,17 @@ def main() -> int:
         ensemble_launches["pilot_card_vs_cpu"] = pilot_card_vs_cpu(dev, sched)
         phase("[16e] pilot_eval")
         ensemble_launches["pilot_eval"] = run_pilot_eval(dev)
+
+        # ---- 17. the single-env surface: the gym envs card vs CPU (K1 at
+        # N = 1), the legacy mini training, the six research diagnostics
+        phase("[17a]")
+        ensemble_launches.update(
+            {f"single_{k}": v for k, v in single_env_card_vs_cpu(dev).items()})
+        phase("[17b]")
+        ensemble_launches["legacy_mini_training"] = legacy_mini_training(dev)
+        phase("[17c]")
+        ensemble_launches.update(
+            {f"cli_{k}": v for k, v in run_single_env_clis(scratch, student_path).items()})
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -4,6 +4,7 @@ and the card's eval path integrates only through K1."""
 from __future__ import annotations
 
 import ast
+import dataclasses
 import importlib.util
 import pkgutil
 import subprocess
@@ -66,7 +67,8 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.evaluate", "tvc_ai_torch.agents.td3", "tvc_ai_torch.agents.ppo",
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
-            *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES} <= set(MODULES)
+            *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES,
+            *SINGLE_ENV_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -91,8 +93,16 @@ DISTILL_MODULES = ["tvc_ai_torch.training.cem", "tvc_ai_torch.training.dagger",
                    *(f"tvc_ai_torch.{name}" for name in DISTILL_CLIS)]
 
 
+# the single-env core, the gym envs and their registry, the diagnostics CLIs
+SINGLE_ENV_CLIS = ["policy_breakdown", "ablate_dr", "inspect_policy", "diagnose_cg",
+                   "lqr_balance", "scripted_controller"]
+SINGLE_ENV_MODULES = ["tvc_ai_torch.env.single", "tvc_ai_torch.env.wrappers",
+                      "tvc_ai_torch.env.registration",
+                      *(f"tvc_ai_torch.{name}" for name in SINGLE_ENV_CLIS)]
+
+
 @pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
-                         + DISTILL_MODULES)
+                         + DISTILL_MODULES + SINGLE_ENV_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -622,3 +632,125 @@ def test_distill_paths_reach_physics_only_through_k1(monkeypatch):
                                    n_samples=2, generator=gen)
     pilot.replan(ps, sched, params, ccfg, states, generator=gen)
     assert calls == [12] + [30] * 3 + [6] * 6
+
+
+def test_single_env_core_imports_without_gymnasium():
+    """The core, the env package and the diagnostics CLIs import with
+    gymnasium blocked, and the gym classes' gymnasium-free bases reset and
+    step; only the gym names need it."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['gymnasium'] = None\n"
+        "import tvc_ai_torch.env as env\n"
+        "from tvc_ai_torch.env.single import (EnhancedRocketTVC, RocketConfig, RocketTVC,\n"
+        "                                     SingleEnv)\n"
+        "for cls, width in ((RocketTVC, 8), (EnhancedRocketTVC, 10)):\n"
+        "    shell = cls(device='cpu')\n"
+        "    assert shell.reset(seed=1)[0].shape == (width,)\n"
+        "    assert shell.step([0.1, 0.0])[0].shape == (width,)\n"
+        f"for name in {SINGLE_ENV_CLIS!r}:\n"
+        "    importlib.import_module('tvc_ai_torch.' + name)\n"
+        "assert env.RocketConfig is RocketConfig\n"
+        "try:\n"
+        "    env.RocketTVCEnv\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('the gym names need gymnasium')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", SINGLE_ENV_CLIS)
+def test_single_env_commands_default_to_cuda(name, tmp_path):
+    """``python -m tvc_ai_torch.<name>`` asks for CUDA unless ``--cpu`` is
+    given: it raises where there is none, before it reads anything."""
+    main = importlib.import_module(f"tvc_ai_torch.{name}").main
+    model = str(tmp_path / "missing.pt")
+    argv = {"policy_breakdown": ["--model", model], "ablate_dr": ["--model_path", model],
+            "inspect_policy": ["--model_path", model], "diagnose_cg": ["--model_path", model],
+            "lqr_balance": ["--cg", "0.0", "--steps", "2"],
+            "scripted_controller": ["--cg", "0.0", "--steps", "2"]}[name]
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; chip_smoke.py [17c] runs the commands there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+@pytest.mark.parametrize("factory", ["make_training_env", "make_evaluation_env", "make_debug_env",
+                                     "make_legacy_env", "gym_make", "single_env"])
+def test_single_env_factories_default_to_cuda(factory):
+    """The gym factories, ``gym.make`` of the port's ids and the core ask for
+    CUDA when no device is given."""
+    import gymnasium as gym
+
+    from tvc_ai_torch.env import registration
+    from tvc_ai_torch.env.single import SingleEnv
+
+    registration.register_envs()
+    make = {"gym_make": lambda: gym.make("tvc_ai_torch/EnhancedRocketTVC-v0").unwrapped,
+            "single_env": lambda: SingleEnv(EnvParams())}.get(
+        factory, getattr(registration, factory, None))
+    if torch.cuda.is_available():
+        made = make()
+        core = made if isinstance(made, SingleEnv) else made.core
+        assert core.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_single_env_paths_reach_physics_only_through_k1(monkeypatch):
+    """The gym step (both classes), the core and the six diagnostics CLIs'
+    rollouts integrate through K1's wrapper, never the plain integrator, and
+    every input K1 gets passes its check (dtype, shape, contiguity, 16-byte
+    alignment), a replaced CG offset included."""
+    from tvc_ai_torch import (ablate_dr, diagnose_cg, inspect_policy, lqr_balance,
+                              policy_breakdown, scripted_controller)
+    from tvc_ai_torch.env.wrappers import EnhancedRocketTVCEnv, RocketTVCEnv
+    from tvc_ai_torch.eval.rollout import EvalDraws
+    from tvc_ai_torch.ops import step_kernel as k1
+
+    calls = []
+
+    def wrapper(state, control, params, *args, **kwargs):
+        calls.append(state.pos.shape[0])
+        return k1.step_kernel(state, control, params, *args, **kwargs)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a single-env path called the plain integrator")
+
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    for cls in (EnhancedRocketTVCEnv, RocketTVCEnv):
+        env = cls(domain_randomization=True, sensor_noise=True, device="cpu")
+        env.reset(seed=1)
+        for _ in range(3):
+            env.step(np.full(2, 0.1, np.float32))
+    assert calls == [1] * 6
+    calls.clear()
+    small = sac.SACConfig((8, 8))
+    actor = sac.make_actor(10, 2, small, "cpu")
+    params = diagnose_cg.env_params()
+    inspect_policy.inspect(actor, dataclasses.replace(params, max_episode_steps=3), 1, 1, "cpu")
+    diagnose_cg.diagnose(actor, params, [0.02], 3, 1, "cpu")
+    monkeypatch.setattr(demos, "design_lqr", lambda p: ANY_DESIGN)
+    lqr_balance.probe(params, [0.02], "privileged", 3, 0, False, "cpu")
+    scripted_controller.probe(params, [0.02], "integral", (5.0, 2.0, 0.2, 0.5, 1.0), 3, 0,
+                              False, False, "cpu")
+    assert calls == [1] * 12
+    calls.clear()
+    scripted_controller.probe(params, [0.02], "cascade", None, 2, 0, True, False, "cpu")
+    assert calls == [3] * 2   # the cascade grid's 3 gain sets as one batch
+    calls.clear()
+    suite = dataclasses.replace(policy_breakdown.suite_params("robustness", False, "ema"),
+                                max_episode_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    draws = EvalDraws(reset=rocket_env.draw_reset(suite, 4, torch.device("cpu"), gen))
+    policy_breakdown.breakdown(
+        lambda a, o: sac.select_action(a, o, deterministic=True),
+        sac.make_actor(16, 2, small, "cpu"), suite, 4, 1, draws, gen)
+    ablate_dr.ablate(sac.init(10, 2, small, device="cpu"), small, 4, 1, 0, horizon=2)
+    assert calls == [4] * 2 + [4] * 2 * len(ablate_dr.axes())

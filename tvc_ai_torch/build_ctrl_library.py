@@ -20,6 +20,8 @@ from pathlib import Path
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     p = argparse.ArgumentParser(description="controller library (PyTorch/CUDA port)")
     p.add_argument("--suite", default="robustness", choices=["robustness", "stress"])
     p.add_argument("--episodes", type=int, default=1024,
@@ -38,7 +40,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fresh_seed", type=int, default=1000)
     p.add_argument("--out", default=None)
-    p.add_argument("--cpu", action="store_true")
+    add_device_flags(p, device_flag=False)
     args = p.parse_args(argv)
 
     import numpy as np
@@ -48,10 +50,9 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.eval.evaluate import _suite_env_params
     from tvc_ai_torch.training import cem as cem_mod
     from tvc_ai_torch.training import demos
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
     from tvc_ai_torch.utils.tree import tree_map
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(p, args))
     params = _suite_env_params(args.suite)
     sched = demos.design_lqr_schedule(params, device=dev).to(dev)
     ccfg = cem_mod.CEMConfig(pop=args.cem_pop, generations=args.cem_gens,

@@ -68,6 +68,8 @@ def success_rates(eval_fns: dict, eval_params: dict, agent, seed: int, dev) -> d
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     p = argparse.ArgumentParser(description="DAgger distillation (PyTorch/CUDA port)")
     p.add_argument("--out", default="outputs/dagger_r4")
     p.add_argument("--iters", type=int, default=30)
@@ -102,7 +104,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--save_every", type=int, default=0,
                    help="also save student_{iter:03d}.pt every N iterations")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--cpu", action="store_true")
+    add_device_flags(p, device_flag=False)
     p.add_argument("--trim_obs", action="store_true",
                    help="add the 4 trim-observation channels")
     p.add_argument("--trim_mode", choices=["ema", "integral"], default="ema")
@@ -121,9 +123,8 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.eval.evaluate import _suite_env_params
     from tvc_ai_torch.training import cem as cem_mod
     from tvc_ai_torch.training import dagger, demos
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(p, args))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     obs_overrides = dict(drift_obs_enabled=True, action_obs_enabled=True)

@@ -28,8 +28,10 @@ PHASE_HOVER = 4
 PHASE_COMPLETE = 5
 PHASE_FAILED = 6
 NUM_PHASES = 7
+PHASE_NAMES = ("boost", "coast", "landing", "touchdown", "hover", "complete", "failed")
 
 OBS_DIM = 10        # [quat(4), ω(3), fuel, phase, progress]
+OBS_DIM_LEGACY = 8  # [quat(4), ω(3), fuel] (the legacy gym env's observation)
 ACTION_DIM = 2      # gimbal [pitch, yaw] in [-1, 1]
 TRIM_OBS_DIM = 4    # optional [ema_qx, ema_qy, ema_act_pitch, ema_act_yaw]
 DRIFT_OBS_DIM = 4   # optional scaled [vx, vy, x, y]

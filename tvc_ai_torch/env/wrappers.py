@@ -1,61 +1,62 @@
-"""The legacy physical-configuration object the evaluation suites build on.
+"""Gymnasium environments over the single-env core.
 
-Counterpart of ``tvc_ai_tpu/env/wrappers.py::RocketConfig`` and its
-``to_env_params``. The Gymnasium classes of that module wait for their own
-slice (ROADMAP module 12).
+Counterpart of ``tvc_ai_tpu/env/wrappers.py``, both API generations:
+
+- ``EnhancedRocketTVCEnv``: 10-D obs [quat, ω, fuel, phase, progress], the
+  constructor flags (``enable_hierarchical`` / ``enable_curiosity`` /
+  ``enable_physics_informed``), mission phases; with curiosity on (the
+  default) the ICM's forward-model bonus is added to the step reward;
+- ``RocketTVCEnv`` + ``RocketConfig``: the legacy 8-D obs [quat, ω, fuel]
+  and ``current_mass`` under domain randomization.
+
+Everything but gymnasium's part lives in ``env.single``
+(``EnhancedRocketTVC`` / ``RocketTVC``: the constructors, reset, step, the
+obs width, the curiosity bonus, the ``step_draws`` hook): the env is an
+N = 1 batch on ``device`` (CUDA by default) stepped through
+``rocket_env.batched_step``, so on the card the physics is K1, and each step
+makes one device-to-host read. This module adds ``gym.Env``, the spaces,
+``metadata`` and gymnasium's ``np_random`` seeding on reset.
+
+This is the only module of the port that imports gymnasium.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import math
+import functools
+from typing import Optional
 
-from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, as_float32
-from tvc_ai_torch.physics.types import RocketParams
+import gymnasium as gym
+import numpy as np
+from gymnasium import spaces
+
+from tvc_ai_torch.env.single import EnhancedRocketTVC, RocketConfig, RocketTVC
+from tvc_ai_torch.env.types import ACTION_DIM
+
+__all__ = ["EnhancedRocketTVCEnv", "RocketConfig", "RocketTVCEnv"]
 
 
-@dataclasses.dataclass
-class RocketConfig:
-    """Legacy physical configuration (mutable, like the original); the
-    reference's defaults (mass 1.5 kg, CG offset 0.05 m)."""
+class _GymPart:
+    """What gymnasium adds to an ``env.single.EnvShell``: the spaces, the
+    metadata and the seeding of ``np_random``."""
 
-    mass: float = 1.5                 # kg
-    radius: float = 0.05              # m
-    length: float = 1.0               # m
-    thrust_mean: float = 35.0         # N
-    burn_time: float = 20.0           # s (→ 0.001 fuel/step at 50 Hz)
-    max_gimbal_angle: float = math.radians(18.0)
-    mass_variation: float = 0.3       # ± fraction
-    thrust_variation: float = 0.2     # σ fraction
-    cg_offset_max: float = 0.05       # m
-    wind_max: float = 3.0             # N
-    sensor_noise_std: float = 0.02
+    metadata = {"render_modes": ["human", "rgb_array"], "render_fps": 60}
 
-    def to_env_params(
-        self,
-        *,
-        domain_randomization: bool,
-        sensor_noise: bool,
-        max_episode_steps: int,
-    ) -> EnvParams:
-        dt = 0.02
-        rocket = RocketParams(
-            mass=self.mass,
-            radius=self.radius,
-            length=self.length,
-            thrust=self.thrust_mean,
-            max_gimbal=self.max_gimbal_angle,
-            fuel_burn_rate=dt / self.burn_time,
-        )
-        rnd = RandomizationConfig(
-            enabled=bool(domain_randomization),
-            sensor_noise_enabled=bool(sensor_noise),
-            mass_variation=self.mass_variation,
-            thrust_variation=self.thrust_variation,
-            cg_offset_max=self.cg_offset_max,
-            wind_max=self.wind_max,
-            sensor_noise_std=self.sensor_noise_std,
-        )
-        return as_float32(EnvParams(
-            rocket=rocket, randomization=rnd, max_episode_steps=max_episode_steps
-        ))
+    @functools.cached_property
+    def action_space(self) -> spaces.Box:
+        return spaces.Box(low=-1.0, high=1.0, shape=(ACTION_DIM,), dtype=np.float32)
+
+    @functools.cached_property
+    def observation_space(self) -> spaces.Box:
+        return spaces.Box(low=self.obs_low, high=self.obs_high, dtype=np.float32)
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[dict] = None):
+        gym.Env.reset(self, seed=seed)
+        return super().reset(seed=seed, options=options)
+
+
+class EnhancedRocketTVCEnv(_GymPart, EnhancedRocketTVC, gym.Env):
+    """``env.single.EnhancedRocketTVC`` as a ``gym.Env``."""
+
+
+class RocketTVCEnv(_GymPart, RocketTVC, gym.Env):
+    """``env.single.RocketTVC`` as a ``gym.Env``."""

@@ -27,7 +27,7 @@ import torch
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.agents.legacy import read_agent_file
 from tvc_ai_torch.env.types import EnvParams, as_float32
-from tvc_ai_torch.env.wrappers import RocketConfig
+from tvc_ai_torch.env.single import RocketConfig
 from tvc_ai_torch.eval.rollout import (
     EpisodeStats,
     make_eval_fn,

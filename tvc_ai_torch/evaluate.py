@@ -1,12 +1,12 @@
 """Evaluate a trained agent over the Standard / Robustness / Stress suites.
 
     python -m tvc_ai_torch.evaluate --model_path RUN/checkpoints_best \\
-        [--suite standard|robustness|stress|all] [--device cuda|cpu] ...
+        [--suite standard|robustness|stress|all] [--device cuda|cpu | --cpu] ...
 
 The counterpart of ``scripts/evaluate.py`` for the port's own checkpoints (a
 manager root or one step directory); a flax msgpack or an orbax checkpoint
 raises ``NotImplementedError``. Each suite runs all its episodes as one
-batch. It runs on CUDA unless ``--device cpu`` is given.
+batch. It runs on CUDA unless ``--device cpu`` (or ``--cpu``) is given.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
+from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -51,8 +51,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="override the suites' CG-offset range (ablation)")
     parser.add_argument("--no_sensor_noise", action="store_true",
                         help="disable the suites' sensor noise (ablation)")
-    parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
-                        help="cuda (default) or cpu")
+    add_device_flags(parser)
     args = parser.parse_args(argv)
 
     from tvc_ai_torch.agents.sac import SACConfig
@@ -67,7 +66,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     from tvc_ai_torch.utils.devices import resolve_device
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(device_from_flags(parser, args))
     sac_cfg = SACConfig(hidden_dims=tuple(args.hidden))
     if args.run_config:
         from tvc_ai_torch.config import build_env_params, build_sac_config, load_config

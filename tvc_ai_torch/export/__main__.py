@@ -17,7 +17,12 @@ from __future__ import annotations
 
 import argparse
 
-from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
+from tvc_ai_torch.utils.devices import (
+    DEFAULT_DEVICE,
+    add_device_flags,
+    device_from_flags,
+    resolve_device,
+)
 
 
 def load_actor_params(model_path: str, obs_dim: int, action_dim: int, hidden,
@@ -44,15 +49,14 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--validate", action="store_true")
     parser.add_argument("--benchmark", action="store_true")
     parser.add_argument("--generate_c_array", action="store_true")
-    parser.add_argument("--cpu", action="store_true")
+    add_device_flags(parser, device_flag=False)
     args = parser.parse_args(argv)
 
-    from tvc_ai_torch.env.wrappers import RocketConfig
+    from tvc_ai_torch.env.single import RocketConfig
     from tvc_ai_torch.export.c_array import generate_c_array, generate_tflm_example
     from tvc_ai_torch.export.tflite import export_actor
-    from tvc_ai_torch.utils.devices import resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(parser, args))
     actor = load_actor_params(args.model_path, args.obs_dim, args.action_dim, args.hidden, dev)
     env_params = RocketConfig().to_env_params(
         domain_randomization=False, sensor_noise=False, max_episode_steps=1000

@@ -26,6 +26,8 @@ import time
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     p = argparse.ArgumentParser(description="identification pilot eval (PyTorch/CUDA port)")
     p.add_argument("--suite", default="robustness", choices=["robustness", "stress"])
     p.add_argument("--episodes", type=int, default=512)
@@ -60,7 +62,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--sensor_noise", type=int, default=None,
                    help="override suite sensor noise (0/1)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--cpu", action="store_true")
+    add_device_flags(p, device_flag=False)
     p.add_argument("--diag", action="store_true",
                    help="print identification error vs the true draw at each replan")
     args = p.parse_args(argv)
@@ -74,9 +76,8 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.training import cem as cem_mod
     from tvc_ai_torch.training import demos
     from tvc_ai_torch.training import pilot as pilot_mod
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(p, args))
     params = _suite_env_params(
         args.suite, obs_overrides={"drift_obs_enabled": True}, cg_offset_max=args.cg_offset_max,
         sensor_noise=None if args.sensor_noise is None else bool(args.sensor_noise))

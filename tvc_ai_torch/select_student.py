@@ -23,6 +23,8 @@ from pathlib import Path
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     p = argparse.ArgumentParser(description="student reselection (PyTorch/CUDA port)")
     p.add_argument("--dir", required=True)
     p.add_argument("--episodes", type=int, default=512)
@@ -32,7 +34,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--suite", default="robustness", choices=["robustness", "stress"])
     p.add_argument("--select_seed", type=int, default=1001)
     p.add_argument("--confirm_seed", type=int, default=2002)
-    p.add_argument("--cpu", action="store_true")
+    add_device_flags(p, device_flag=False)
     args = p.parse_args(argv)
 
     import torch
@@ -41,9 +43,8 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.env.types import obs_dim as obs_dim_of
     from tvc_ai_torch.eval import rollout as rollout_mod
     from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(p, args))
     out = Path(args.dir)
     candidates = sorted(out.glob("student*.pt"))
     if not candidates:

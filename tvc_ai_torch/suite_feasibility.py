@@ -23,13 +23,15 @@ import time
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     parser = argparse.ArgumentParser(description="suite feasibility oracle (PyTorch/CUDA port)")
     parser.add_argument("--suite", nargs="*", default=["robustness", "stress"])
     parser.add_argument("--episodes", type=int, default=200)
     parser.add_argument("--steps", type=int, default=0,
                         help="horizon (0 = the suite's own max_episode_steps)")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--cpu", action="store_true")
+    add_device_flags(parser, device_flag=False)
     parser.add_argument("--scheduled", action="store_true",
                         help="use the gain-scheduled privileged LQR teacher")
     parser.add_argument("--cem", action="store_true",
@@ -59,9 +61,8 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.eval.evaluate import _suite_env_params
     from tvc_ai_torch.training import cem as cem_mod
     from tvc_ai_torch.training import demos
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(parser, args))
     design = None
     sched = None
     for suite in args.suite:

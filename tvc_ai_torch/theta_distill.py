@@ -22,6 +22,8 @@ from pathlib import Path
 
 
 def main(argv: list[str] | None = None) -> int:
+    from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags, resolve_device
+
     p = argparse.ArgumentParser(description="θ-student distillation (PyTorch/CUDA port)")
     p.add_argument("--out", default="outputs/theta_r4")
     p.add_argument("--iters", type=int, default=60)
@@ -46,7 +48,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="survival term in the CEM score (alive_weight)")
     p.add_argument("--eval_episodes", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--cpu", action="store_true")
+    add_device_flags(p, device_flag=False)
     p.add_argument("--mass_variation", type=float, default=0.30)
     p.add_argument("--thrust_variation", type=float, default=0.20)
     p.add_argument("--cg_offset_max", type=float, default=0.05)
@@ -66,9 +68,8 @@ def main(argv: list[str] | None = None) -> int:
     from tvc_ai_torch.eval.evaluate import _suite_env_params
     from tvc_ai_torch.training import cem as cem_mod
     from tvc_ai_torch.training import demos, theta_student
-    from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-    dev = resolve_device("cpu" if args.cpu else DEFAULT_DEVICE)
+    dev = resolve_device(device_from_flags(p, args))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     obs_overrides = dict(drift_obs_enabled=True, action_obs_enabled=True)

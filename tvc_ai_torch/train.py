@@ -1,14 +1,14 @@
 """Train a TVC policy with the PyTorch port — its main entry point.
 
     python -m tvc_ai_torch.train --config tvc_ai_torch/config/default.yaml \\
-        [--device cuda|cpu] [--resume DIR] [--output-dir DIR] [--debug] \\
+        [--device cuda|cpu | --cpu] [--resume DIR] [--output-dir DIR] [--debug] \\
         training.total_timesteps=500000 training.num_envs=2048
 
 The counterpart of ``scripts/train.py``: ``--config`` (default: the package's
 ``config/default.yaml``), dotted overrides, ``--debug`` for a small fast run,
 and ``--resume`` from a checkpoint directory (a manager root or one step
 directory; for the ensemble routes, an ``ensemble_final.pt`` file). It runs
-on CUDA unless ``--device cpu`` is given. ``training.algorithm`` picks the
+on CUDA unless ``--device cpu`` (or the reference's ``--cpu``) is given. ``training.algorithm`` picks the
 trainer as the reference does: ``ensemble`` runs ``EnsembleTrainer``,
 ``ppo`` and ``td3`` run it with that member forced to act, anything else
 runs the fused SAC ``Trainer``.
@@ -31,7 +31,7 @@ import functools
 import torch
 
 from tvc_ai_torch.parallel import mesh
-from tvc_ai_torch.utils.devices import DEFAULT_DEVICE
+from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -42,10 +42,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--resume", type=str, default=None,
                         help="checkpoint directory to resume from (ensemble routes: a file)")
     parser.add_argument("--output-dir", type=str, default=None)
-    parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
-                        help="cuda (default) or cpu")
+    add_device_flags(parser)
     parser.add_argument("overrides", nargs="*", help="dotted config overrides: a.b.c=value")
     args = parser.parse_args(argv)
+    device = device_from_flags(parser, args)
 
     from tvc_ai_torch.config import default_config_path, load_config, save_config
 
@@ -66,7 +66,7 @@ def main(argv: list[str] | None = None) -> int:
         cfg.training.rollout_steps = min(cfg.training.rollout_steps, 32)
         cfg.logging.level = "DEBUG"
 
-    trainer = Trainer(cfg, output_dir=args.output_dir, resume=args.resume, device=args.device)
+    trainer = Trainer(cfg, output_dir=args.output_dir, resume=args.resume, device=device)
     if mesh.rank() == 0:
         save_config(cfg, trainer.output_dir / "config.yaml")
     result = trainer.train()
