@@ -191,6 +191,19 @@ verbose lines within 0.02, the step where they part printed),
 checkpoint at 64 episodes and a 128-step horizon (patched into the env
 parameters they build where they have no flag for it).
 
+Phases [18a]-[18d] drive the last modules. [18a] flies the five
+PyBullet-parity scenarios through ``eval.pybullet_parity.torch_trajectory``
+(K1 at N = 1, 210 launches) against the same on the CPU at the observation
+bar, then runs ``python -m tvc_ai_torch.pybullet_goldens check`` on a fixture
+written from the CPU trajectories. [18b] runs ``python -m
+tvc_ai_torch.tune_hyperparameters`` at its defaults' width (256 envs, 50,000
+steps a trial, 8 eval episodes) with the trials cut from 20 to 3, whose
+parameters must equal the CPU's draws of the same seed. [18c] holds the
+reference's remaining names card vs CPU (the quaternion extras at 1e-6,
+``ppo.select_action`` at 1e-5, an 8-step iteration with a constant
+``act_fn`` at [7]'s bars) and reads ``DeviceManager("cuda")``'s memory.
+[18d] loads [9]'s ``metrics.csv`` and plots it where matplotlib imports.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
@@ -236,7 +249,8 @@ from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.env.single import RocketConfig
 from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state, run_all_suites
-from tvc_ai_torch import dagger_distill, pilot_eval
+from tvc_ai_torch import dagger_distill, pilot_eval, pybullet_goldens, tune_hyperparameters
+from tvc_ai_torch.eval import pybullet_parity
 from tvc_ai_torch.eval.rollout import (
     EvalDraws,
     make_eval_fn,
@@ -261,11 +275,12 @@ from tvc_ai_torch.models.safety import (
 )
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.ops import step_kernel as k1
-from tvc_ai_torch.physics import integrator
+from tvc_ai_torch.physics import integrator, quaternion
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.types import RigidBodyState, RocketParams
 from tvc_ai_torch.parallel import mesh
 from tvc_ai_torch.training import cem, dagger, demos, loop, pilot, theta_student
+from tvc_ai_torch.tuning import hpo
 from tvc_ai_torch.training.loop import IterDraws, SampleDraws, StepDraws, collect
 from tvc_ai_torch.train import main as train_main
 from tvc_ai_torch.training.population import (
@@ -278,7 +293,8 @@ from tvc_ai_torch.training.population import (
 from tvc_ai_torch.training.trainer import Trainer, demo_env_params
 from tvc_ai_torch.training.trainer_ensemble import FINAL_CHECKPOINT, EnsembleTrainer
 from tvc_ai_torch.utils.checkpoint import diff_states, flat_state
-from tvc_ai_torch.utils.devices import set_parity_precision
+from tvc_ai_torch.utils.devices import DeviceManager, set_parity_precision
+from tvc_ai_torch.viz import visualize as viz
 
 ROOT = Path(__file__).resolve().parent
 N_ENVS = 4096
@@ -3271,6 +3287,205 @@ def run_single_env_clis(scratch: Path, student_path: Path) -> dict:
     return launches
 
 
+HPO_TRIALS = 3                 # [18b] --n_trials, cut from 20 (256 envs, 50,000 steps a trial)
+QUAT_ROWS = 4096               # [18c] quaternions card vs CPU
+QUAT_BAR = dict(atol=1e-6, rtol=0.0)
+PPO_ACT_BAR = dict(atol=1e-5, rtol=0.0)
+ACT_FN_ENVS, ACT_FN_STEPS = 256, 8   # [18c] the constant-act_fn iteration, updates from step 4
+ACT_FN_ACTION = (0.3, -0.1)    # [18c] the reference's det_act (tests/test_loop.py)
+
+
+def parity_card_vs_cpu(scratch: Path, dev) -> dict:
+    """[18a]: the five PyBullet-parity scenarios through ``torch_trajectory``,
+    K1 at N = 1 on the card (one launch per step, 210 in all) against its
+    plain version on the CPU, held at the env observation bar; then
+    ``python -m tvc_ai_torch.pybullet_goldens check`` (through ``main``) on a
+    fixture written from the CPU trajectories exits 0 with ``PARITY PASS``.
+    Returns the K1 launches of the trajectories and of the check."""
+    pp = pybullet_parity
+    cpu_traj, launches, total_steps = {}, {}, 0
+    for sc in pp.SCENARIOS:
+        actions = sc.actions()
+        t0 = time.perf_counter()
+        cpu_traj[sc.name] = pp.torch_trajectory(actions, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        k1.step_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = pp.torch_trajectory(actions, device=dev)
+        card_s = time.perf_counter() - t0
+        launches[sc.name] = k1.step_kernel.launches
+        assert launches[sc.name] == sc.steps, (sc.name, launches[sc.name])
+        total_steps += sc.steps
+        want = cpu_traj[sc.name]
+        torch.testing.assert_close(torch.from_numpy(card), torch.from_numpy(want),
+                                   msg=f"[18a] {sc.name}", **OBS)
+        d = np.abs(card - want)
+        of_bar = float((d / (OBS["atol"] + OBS["rtol"] * np.abs(want))).max())
+        log(f"[18a] {sc.name} ({sc.steps} steps, lowest z {want[:, 2].min():.3f} m): card (K1 "
+            f"at N = 1) vs CPU max |d| {d.max():.3e} ({of_bar:.3f} of the bar "
+            f"{OBS['atol']} + {OBS['rtol']}|ref|), max |d pos| {d[:, :3].max():.3e}, max |d "
+            f"quat| {d[:, 3:7].max():.3e}; K1 launches {launches[sc.name]}; card "
+            f"{card_s / sc.steps * 1e3:.3f} ms per step on the host clock (one device-to-host "
+            f"copy per scenario), CPU {cpu_s / sc.steps * 1e3:.3f} ms")
+    fixture = pp.write_goldens(scratch / "pybullet_goldens_cpu.npz", cpu_traj)
+    k1.step_kernel.launches = 0
+    rc, out, secs = captured_main(pybullet_goldens.main, ["check", "--fixture", str(fixture)])
+    check_launches = k1.step_kernel.launches
+    assert rc == 0 and out.rstrip().endswith("PARITY PASS"), (rc, out[-500:])
+    report = json.loads(out[:out.rindex("PARITY PASS")])
+    worst_pos = max(r["max_pos_err_m"] for r in report["scenarios"].values())
+    worst_dot = min(r["min_quat_dot"] for r in report["scenarios"].values())
+    assert check_launches == total_steps, (check_launches, total_steps)
+    log(f"[18a] python -m tvc_ai_torch.pybullet_goldens check --fixture <CPU trajectories>: "
+        f"exit {rc}, PARITY PASS over {len(report['scenarios'])} scenarios (max pos err "
+        f"{worst_pos:.3e} m, min quat dot {worst_dot:.9f}) in {secs:.3f} s; K1 launches "
+        f"{check_launches} == {total_steps} steps")
+    return {"parity_card_vs_cpu": sum(launches.values()), "parity_check_cli": check_launches}
+
+
+def run_hpo(scratch: Path) -> int:
+    """[18b]: ``python -m tvc_ai_torch.tune_hyperparameters`` (through
+    ``main``) at its defaults' width, 256 envs and 50,000 env steps a trial
+    (3 iterations of 64 steps, an 8-episode eval after each), trials cut to
+    ``HPO_TRIALS``. Its trials' parameters must equal the draws of the same
+    seed on the CPU; every score finite. Returns its K1 launches."""
+    out_dir = scratch / "hpo"
+    k1.step_kernel.launches = 0
+    rc, out, secs = captured_main(tune_hyperparameters.main,
+                                  ["--n_trials", str(HPO_TRIALS), "--output_dir", str(out_dir)])
+    launches = k1.step_kernel.launches
+    for line in out.rstrip().splitlines():
+        log(f"[18b] tune_hyperparameters| {line}")
+    assert rc == 0, rc
+    trials = json.loads((out_dir / "trials.json").read_text())
+
+    def draw_only(trial):
+        hpo.default_search_space(trial)
+        return 0.0
+
+    _, drawn = hpo.run_study(draw_only, HPO_TRIALS, 0)
+    assert [t["params"] for t in trials] == [r.params for r in drawn], (trials, drawn)
+    assert all(math.isfinite(v) for t in trials for v in [t["value"], *t["intermediate"]]), trials
+    iters, steps = 50_000 // (256 * hpo.ROLLOUT_STEPS), 256 * hpo.ROLLOUT_STEPS
+    scores = ", ".join(f"{t['value']:.2f}" for t in trials)
+    assert launches > HPO_TRIALS * iters * hpo.ROLLOUT_STEPS, launches
+    log(f"[18b] {HPO_TRIALS} trials (cut from 20) of {iters} iterations x {steps} env steps at "
+        f"256 envs in {secs:.3f} s = {secs / HPO_TRIALS:.3f} s per trial; trial parameters "
+        f"equal the CPU's draws of seed 0; scores {scores}; hidden "
+        f"{[t['params']['hidden_dim'] for t in trials]}, batch "
+        f"{[t['params']['batch_size'] for t in trials]}; K1 launches {launches} (of which "
+        f"{HPO_TRIALS * iters * hpo.ROLLOUT_STEPS} training steps, the rest eval steps)")
+    return launches
+
+
+def remnants_card_vs_cpu(dev, short: EnvParams) -> int:
+    """[18c]: the reference's remaining names card vs CPU: ``to_matrix``,
+    ``tilt_from_up`` (tilts of 0.3 rad and more: arccos near 1 amplifies one
+    rounding step) and ``random_tilt_quaternion`` at 1e-6 on 4096 rows;
+    ``ppo.select_action`` deterministic and stochastic (same normals) at 1e-5;
+    one 8-step iteration of 256 envs with the constant ``act_fn`` at [7]'s
+    bars (the safety layer off, so that the replay holds the hook's actions),
+    its stored actions exactly the constant; ``DeviceManager("cuda")``'s
+    memory info. Returns the iteration's K1 launches."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 80)
+    q = rng.normal(size=(QUAT_ROWS, 4)).astype(np.float32)
+    q = torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True))
+    tilt = torch.from_numpy(rng.uniform(0.3, 3.0, QUAT_ROWS).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(QUAT_ROWS, 2)).astype(np.float32))
+    az = torch.from_numpy(rng.uniform(0.0, 2 * np.pi, QUAT_ROWS).astype(np.float32))
+    tilted = quaternion.from_axis_angle(
+        torch.stack([torch.cos(az), torch.sin(az), torch.zeros_like(az)], -1), tilt)
+    errs = {}
+    for name, fn, x in (("to_matrix", quaternion.to_matrix, q),
+                        ("tilt_from_up", quaternion.tilt_from_up, tilted),
+                        ("random_tilt_quaternion",
+                         lambda v: quaternion.random_tilt_quaternion(0.3, u=v), u)):
+        want, got = fn(x), fn(x.to(dev)).cpu()
+        torch.testing.assert_close(got, want, msg=f"[18c] {name}", **QUAT_BAR)
+        errs[name] = float((got - want).abs().max())
+    torch.testing.assert_close(quaternion.tilt_from_up(tilted), tilt, atol=1e-5, rtol=0.0)
+
+    ppo_cfg = ppo.PPOConfig()
+    obs = torch.randn((N_ENVS, 10), generator=torch.Generator().manual_seed(SEED + 81))
+    noise = torch.randn((N_ENVS, 2), generator=torch.Generator().manual_seed(SEED + 82))
+    states = {where: ppo.init(10, 2, ppo_cfg, where, seed=SEED) for where in (cpu, dev)}
+    for deterministic in (True, False):
+        want = ppo.select_action(states[cpu], obs, deterministic, noise)
+        got = ppo.select_action(states[dev], obs.to(dev), deterministic, noise.to(dev)).cpu()
+        torch.testing.assert_close(got, want, **PPO_ACT_BAR)
+        errs[f"ppo.select_action {'deterministic' if deterministic else 'stochastic'}"] = float(
+            (got - want).abs().max())
+
+    n, steps = ACT_FN_ENVS, ACT_FN_STEPS
+    sac_cfg = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * n, learning_starts=4 * n))
+    loop_cfg = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=n, rollout_steps=steps,
+                                           use_safety_layer=False), obs_dim=obs_dim(short))
+    reset_draws, iter_draws = learner_draws(short, n, steps, sac_cfg,
+                                            torch.Generator().manual_seed(SEED + 83))
+
+    def det_act(agent, policy_input, n_act, generator):
+        return torch.tensor([ACT_FN_ACTION], device=policy_input.device).expand(
+            policy_input.shape[0], 2)
+
+    runs = {}
+    for side, where in (("cpu", cpu), ("card", dev)):
+        carry = loop.init_carry(short, sac_cfg, loop_cfg, device=where, seed=SEED,
+                                reset_draws=to_device(reset_draws, where))
+        k1.step_kernel.launches = 0
+        runs[side] = loop.make_train_iteration(sac_cfg, loop_cfg, act_fn=det_act)(
+            carry, short, to_device(iter_draws, where))
+    launches = k1.step_kernel.launches
+    torch.cuda.synchronize()
+    (a, am), (b, bm) = runs["card"], runs["cpu"]
+    assert launches == steps, launches
+    stored = a.buffer.data["action"][:a.buffer.size].cpu()
+    assert torch.equal(stored, torch.tensor([ACT_FN_ACTION]).expand(steps * n, 2)), "actions"
+    assert a.agent.step == b.agent.step == steps - 3, (a.agent.step, b.agent.step)
+    for k in ("obs", "next_obs"):
+        torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+    torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"], **REWARD)
+    assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated differs"
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    param_err = max(net_param_err(getattr(a.agent, net), getattr(b.agent, net), net)
+                    for net in ("actor", "critic", "target_critic"))
+
+    dm = DeviceManager("cuda")
+    info = dm.get_memory_info()
+    assert dm.platform == "cuda" and not dm.is_tpu and info["bytes_limit"] > 0, info
+    assert dm.device_count() == torch.cuda.device_count()
+    dm.synchronize()
+    log("[18c] card vs CPU: " + ", ".join(f"{k} max |d| {v:.3e}" for k, v in errs.items())
+        + f" (quaternions at {QUAT_BAR['atol']}, actions at {PPO_ACT_BAR['atol']}): ok")
+    log(f"[18c] train iteration with act_fn = the constant {ACT_FN_ACTION} ({n} envs x {steps} "
+        f"steps, {a.agent.step} updates), card (K1) vs CPU: every stored action the constant, "
+        f"max |d param| {param_err:.3e} (atol {PARAMS['atol']}), metrics at [7]'s bars; K1 "
+        f"launches {launches}")
+    log(f"[18c] DeviceManager('cuda'): {dm.device}, bytes_in_use {info['bytes_in_use']:.0f}, "
+        f"bytes_limit {info['bytes_limit']:.0f}, peak_bytes_in_use "
+        f"{info['peak_bytes_in_use']:.0f}"
+        + (f", host_ram_used_frac {info['host_ram_used_frac']:.3f}"
+           if "host_ram_used_frac" in info else ", psutil does not import here"))
+    return launches
+
+
+def plots_of_trainer_run(scratch: Path) -> None:
+    """[18d]: ``load_csv_metrics`` over [9]'s ``metrics.csv``; the plots where
+    matplotlib imports, else one line that says so."""
+    run = scratch / "run1"
+    series = viz.load_csv_metrics(run / "metrics.csv")
+    assert series, "no key metric in [9]'s metrics.csv"
+    log("[18d] load_csv_metrics(run1/metrics.csv): " + ", ".join(
+        f"{tag} {len(steps)} points" for tag, (steps, _) in series.items()))
+    if importlib.util.find_spec("matplotlib") is None:
+        log("[18d] matplotlib does not import here: no plots rendered")
+        return
+    artifacts = viz.create_plots(run, scratch / "plots")
+    log(f"[18d] plots: {', '.join(f'{a.name} ({a.stat().st_size} B)' for a in artifacts)}")
+
+
 def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
     """[9a]: K1 against its plain version below one block, at N = 1 (the
     single-env path of [17], in contact too), 2, 20 and 50, each N's time
@@ -3881,6 +4096,18 @@ def main() -> int:
         phase("[17c]")
         ensemble_launches.update(
             {f"cli_{k}": v for k, v in run_single_env_clis(scratch, student_path).items()})
+
+        # ---- 18. the last modules: the PyBullet-parity trajectory through K1
+        # at N = 1 and its check command, the HPO command at its width, the
+        # reference's remaining names card vs CPU, [9]'s training plots
+        phase("[18a]")
+        ensemble_launches.update(parity_card_vs_cpu(scratch, dev))
+        phase("[18b]")
+        ensemble_launches["hpo"] = run_hpo(scratch)
+        phase("[18c]")
+        ensemble_launches["act_fn_iteration"] = remnants_card_vs_cpu(dev, short)
+        phase("[18d]")
+        plots_of_trainer_run(scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -68,7 +68,7 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
             *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES,
-            *SINGLE_ENV_MODULES} <= set(MODULES)
+            *SINGLE_ENV_MODULES, *REMNANT_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -99,10 +99,15 @@ SINGLE_ENV_CLIS = ["policy_breakdown", "ablate_dr", "inspect_policy", "diagnose_
 SINGLE_ENV_MODULES = ["tvc_ai_torch.env.single", "tvc_ai_torch.env.wrappers",
                       "tvc_ai_torch.env.registration",
                       *(f"tvc_ai_torch.{name}" for name in SINGLE_ENV_CLIS)]
+# the last modules: HPO, the plots, the parity gate, the console scripts
+REMNANT_CLIS = ["tune_hyperparameters", "pybullet_goldens", "visualize", "cli"]
+REMNANT_MODULES = ["tvc_ai_torch.tuning", "tvc_ai_torch.tuning.hpo", "tvc_ai_torch.viz",
+                   "tvc_ai_torch.viz.visualize", "tvc_ai_torch.eval.pybullet_parity",
+                   *(f"tvc_ai_torch.{name}" for name in REMNANT_CLIS)]
 
 
 @pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
-                         + DISTILL_MODULES + SINGLE_ENV_MODULES)
+                         + DISTILL_MODULES + SINGLE_ENV_MODULES + REMNANT_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -754,3 +759,91 @@ def test_single_env_paths_reach_physics_only_through_k1(monkeypatch):
         sac.make_actor(16, 2, small, "cpu"), suite, 4, 1, draws, gen)
     ablate_dr.ablate(sac.init(10, 2, small, device="cpu"), small, 4, 1, 0, horizon=2)
     assert calls == [4] * 2 + [4] * 2 * len(ablate_dr.axes())
+
+
+REMNANT_ENTRIES = ["make_sac_objective", "torch_trajectory", "check_goldens",
+                   "device_manager_auto", "tune_hyperparameters_cli", "pybullet_goldens_cli"]
+
+
+@pytest.mark.parametrize("entry", REMNANT_ENTRIES)
+def test_remnant_entry_points_default_to_cuda(entry, tmp_path):
+    """The HPO objective, the parity trajectory and check, the device
+    manager's ``"auto"`` and the two new device commands ask for CUDA unless
+    the CPU is named: they raise where there is none, before they write
+    anything."""
+    from tvc_ai_torch import pybullet_goldens, tune_hyperparameters
+    from tvc_ai_torch.eval import pybullet_parity
+    from tvc_ai_torch.tuning import hpo
+    from tvc_ai_torch.utils.devices import DeviceManager
+
+    out = tmp_path / "out"
+    calls = {
+        "make_sac_objective": lambda: hpo.make_sac_objective(total_steps=64, num_envs=1),
+        "torch_trajectory": lambda: pybullet_parity.torch_trajectory(np.zeros((2, 2))),
+        "check_goldens": lambda: pybullet_parity.check_goldens(out / "missing.npz"),
+        "device_manager_auto": lambda: DeviceManager("auto"),
+        "tune_hyperparameters_cli": lambda: tune_hyperparameters.main(
+            ["--n_trials", "1", "--trial_steps", "64", "--num_envs", "1",
+             "--output_dir", str(out)]),
+        "pybullet_goldens_cli": lambda: pybullet_goldens.main(
+            ["check", "--fixture", str(out / "missing.npz")]),
+    }
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; chip_smoke.py [18a]-[18c] runs these there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert not out.exists()
+
+
+def test_remnant_paths_reach_physics_only_through_k1(monkeypatch):
+    """The parity trajectory and the HPO objective (its training iterations
+    and its evaluations) integrate through K1's wrapper, never the plain
+    integrator on their own, and every input K1 gets passes its check
+    (dtype, shape, contiguity, 16-byte alignment)."""
+    from tvc_ai_torch.eval import pybullet_parity
+    from tvc_ai_torch.ops import step_kernel as k1
+    from tvc_ai_torch.physics import integrator
+    from tvc_ai_torch.tuning import hpo
+
+    calls, inside = [], []
+    original, plain_step = k1.step_kernel, integrator.step
+
+    def wrapper(state, control, params, *args, **kwargs):
+        calls.append(state.pos.shape[0])
+        inside.append(True)
+        try:
+            return original(state, control, params, *args, **kwargs)
+        finally:
+            inside.pop()
+
+    def plain(*args, **kwargs):
+        if not inside:
+            raise AssertionError("a path called the plain integrator outside K1's wrapper")
+        return plain_step(*args, **kwargs)
+
+    monkeypatch.setattr(k1, "step_kernel", wrapper)
+    monkeypatch.setattr(integrator, "step", plain)
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    actions = pybullet_parity.SCENARIOS[-1].actions()[:5]
+    traj = pybullet_parity.torch_trajectory(actions, device="cpu")
+    assert traj.shape == (5, 13) and calls == [1] * 5
+    calls.clear()
+
+    class Trial:
+        number = 0
+
+        def suggest_float(self, name, low, high, log=False):
+            return low
+
+        def suggest_categorical(self, name, choices):
+            return choices[0]
+
+        def report(self, value, step):
+            pass
+
+        def should_prune(self):
+            return False
+
+    hpo.make_sac_objective(total_steps=64, num_envs=1, eval_episodes=2, device="cpu")(Trial())
+    assert calls[:64] == [1] * 64 and set(calls[64:]) == {2}

@@ -149,11 +149,11 @@ def policy_action(
     if algo == "td3":
         return td3_mod.select_action(carry.td3.actor, obs, cfg.td3, n_act, deterministic, generator)
     if algo == "ppo":
-        return ppo_mod.select_action(carry.ppo.actor, obs, n_act, deterministic, generator)
+        return ppo_mod.select_action(carry.ppo, obs, deterministic, n_act, generator)
     if algo != "ensemble":
         raise ValueError(f"unknown acting algorithm {algo!r}; want one of {ACTORS}")
     noise = (None, None, None) if n_act is None else n_act.unbind(0)
-    a_ppo = ppo_mod.select_action(carry.ppo.actor, obs, noise[0], deterministic, generator)
+    a_ppo = ppo_mod.select_action(carry.ppo, obs, deterministic, noise[0], generator)
     a_sac = sac_mod.select_action(carry.sac.actor, obs, noise[1], deterministic, generator)
     a_td3 = td3_mod.select_action(carry.td3.actor, obs, cfg.td3, noise[2], deterministic, generator)
     w = normalized_weights(weights)

@@ -111,30 +111,13 @@ def make_schedule(
     ``cosine`` lr → 0 over ``total_steps``; ``warmup_cosine`` linear from
     lr·initial_lr_factor to lr over ``warmup_steps``, then cosine to 0 over
     ``max(total_steps, warmup_steps + 1) − warmup_steps``."""
-    f32 = np.float32
     if name == "constant":
         return lambda count: lr
-
-    def linear(init: float, end: float, steps: int) -> Callable[[int], float]:
-        if steps <= 0:
-            return lambda count: init
-
-        def fn(count: int) -> float:
-            frac = f32(1.0) - f32(min(max(count, 0), steps)) / f32(steps)
-            return float(f32(init - end) * frac + f32(end))
-        return fn
 
     if name == "linear":
         return linear(lr, 0.0, total_steps)
     if name == "exponential":
-        period = max(total_steps // 10, 1)
-
-        def exponential(count: int) -> float:
-            if count <= 0:
-                return lr
-            p = np.floor(f32(count) / f32(period))
-            return float(f32(lr) * f32(0.5) ** p)
-        return exponential
+        return staircase_decay(lr, max(total_steps // 10, 1), 0.5)
     if name == "cosine":
         return cosine_decay(lr, total_steps)
     if name == "warmup_cosine":
@@ -142,6 +125,32 @@ def make_schedule(
         decay = cosine_decay(lr, max(total_steps, warmup_steps + 1) - warmup_steps)
         return lambda count: warm(count) if count < warmup_steps else decay(count - warmup_steps)
     raise ValueError(f"unknown lr_schedule {name!r}")
+
+
+def linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax ``linear_schedule(init, end, steps)``: init → end over ``steps``
+    counts, then flat (float32); ``init`` throughout when ``steps`` ≤ 0."""
+    if steps <= 0:
+        return lambda count: init
+    f32 = np.float32
+
+    def fn(count: int) -> float:
+        frac = f32(1.0) - f32(min(max(count, 0), steps)) / f32(steps)
+        return float(f32(init - end) * frac + f32(end))
+    return fn
+
+
+def staircase_decay(lr: float, period: int, rate: float) -> Callable[[int], float]:
+    """optax ``exponential_decay(lr, period, rate, staircase=True)``: lr ·
+    rate^⌊count / period⌋ (float32), lr at counts ≤ 0."""
+    f32 = np.float32
+
+    def fn(count: int) -> float:
+        if count <= 0:
+            return lr
+        p = np.floor(f32(count) / f32(period))
+        return float(f32(lr) * f32(rate) ** p)
+    return fn
 
 
 def cosine_decay(lr: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:

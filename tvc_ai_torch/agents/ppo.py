@@ -37,9 +37,7 @@ from typing import Sequence
 
 import torch
 
-from tvc_ai_torch.agents import optim
-# the policy's action is SAC's: tanh(mean) or a tanh-Gaussian sample
-from tvc_ai_torch.agents.sac import select_action  # noqa: F401
+from tvc_ai_torch.agents import optim, sac
 from tvc_ai_torch.env import rocket_env
 from tvc_ai_torch.env.types import EnvParams, EnvState
 from tvc_ai_torch.models import distributions as dist
@@ -100,6 +98,19 @@ def init(
     value = ValueNetwork(obs_dim, cfg.hidden_dims, device=dev, seed=seed + 1)
     return PPOState(actor=actor, value=value,
                     opt=optim.adam_init([*actor.parameters(), *value.parameters()]), step=0)
+
+
+def select_action(
+    state: PPOState,
+    obs: torch.Tensor,
+    deterministic: bool = False,
+    n_act: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """The policy's action in [-1, 1]: tanh(mean), or the tanh-Gaussian
+    sample at the clamped log std with standard-normal noise ``n_act``
+    (drawn from ``generator`` when not given), as ``act`` samples."""
+    return sac.select_action(state.actor, obs, n_act, deterministic, generator)
 
 
 @torch.no_grad()

@@ -49,6 +49,23 @@ def rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return rotate(conjugate(q), v)
 
 
+def to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> (..., 3, 3) rotation matrix (body->world)."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Rotation quaternion from unit axis (..., 3) and angle (...,) in radians."""
     half = 0.5 * angle[..., None]
@@ -84,3 +101,30 @@ def tilt_angle(q: torch.Tensor) -> torch.Tensor:
     """
     e = to_euler_zyx(q)
     return torch.sqrt(e[..., 1] ** 2 + e[..., 2] ** 2)
+
+
+def tilt_from_up(q: torch.Tensor) -> torch.Tensor:
+    """Physical tilt: the angle between the body +Z axis and world +Z
+    (arccos of the rotation matrix's R[2,2])."""
+    x, y = q[..., 0], q[..., 1]
+    up_z = 1.0 - 2.0 * (x * x + y * y)
+    return torch.arccos(torch.clamp(up_z, -1.0, 1.0))
+
+
+def random_tilt_quaternion(
+    max_tilt: float | torch.Tensor,
+    u: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """A quaternion tilted from vertical by up to ``max_tilt`` radians about a
+    horizontal axis. ``u`` (..., 2) holds the two uniforms in [0, 1): the
+    angle is ``u0 · max_tilt``, the axis' azimuth ``u1 · 2π``; one pair is
+    drawn from ``generator`` when ``u`` is not given."""
+    if u is None:
+        device = generator.device if generator is not None else None
+        u = torch.rand(2, generator=generator, device=device)
+    angle = u[..., 0] * max_tilt
+    azimuth = u[..., 1] * (2.0 * math.pi)
+    axis = torch.stack([torch.cos(azimuth), torch.sin(azimuth), torch.zeros_like(azimuth)],
+                       dim=-1)
+    return from_axis_angle(axis, angle)

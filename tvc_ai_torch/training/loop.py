@@ -301,6 +301,7 @@ def make_train_iteration(
     sac_cfg: sac.SACConfig,
     loop_cfg: TrainLoopConfig,
     axis_name: str | None = None,
+    act_fn=None,
 ):
     """Build ``train_iteration(carry, env_params, draws=None) -> (carry, metrics)``.
 
@@ -313,8 +314,15 @@ def make_train_iteration(
     ``done_frac`` average the whole chunk. ``metrics`` holds 0-dim device
     tensors. ``axis_name`` (``parallel.mesh.DATA_AXIS``) runs the iteration
     as one rank of a data-parallel group.
+
+    ``act_fn(agent, policy_input, n_act, generator) -> actions`` replaces the
+    rollout's act path (default: ``sac.select_action`` on the agent's actor
+    with the step's exploration noise ``n_act``, None when not drawn yet).
     """
     _check_supported(loop_cfg, axis_name)
+    if act_fn is None:
+        def act_fn(agent, policy_input, n_act, generator):
+            return sac.select_action(agent.actor, policy_input, n_act, generator=generator)
     k_int = loop_cfg.update_interval
     if loop_cfg.rollout_steps % max(k_int, 1) != 0:
         raise ValueError(
@@ -384,7 +392,7 @@ def make_train_iteration(
         sd = d.step
         # --- act & simulate
         policy_input = augment_with_goal(carry.obs, carry.goal, loop_cfg) if use_hier else carry.obs
-        actions = sac.select_action(carry.agent.actor, policy_input, sd.n_act, generator=gen)
+        actions = act_fn(carry.agent, policy_input, sd.n_act, gen)
         cur_frame = carry.obs[:, -obs_dim:] if history > 1 else carry.obs
         if loop_cfg.use_safety_layer:
             actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)

@@ -1,9 +1,10 @@
 """Training-stability toolkit: adaptive τ, primacy reset, dormant-unit reinit.
 
-Counterpart of ``tvc_ai_tpu/training/stability.py``. The learning-rate
-schedules live in ``agents/optim.py`` (``SACConfig.lr_schedule``), as the
-reference folds them into its optimizers. The interventions change the
-actor's parameters in place, between iterations:
+Counterpart of ``tvc_ai_tpu/training/stability.py``. The trainer's
+learning-rate schedules live in ``agents/optim.py`` (``SACConfig.lr_schedule``),
+as the reference folds them into its optimizers; ``make_lr_schedule`` builds
+the toolkit's own from a ``StabilityConfig`` out of the same pieces. The
+interventions change the actor's parameters in place, between iterations:
 
 - ``primacy_reset`` resets a random ``ratio`` of every parameter to its
   initial value; its Bernoulli masks are explicit (``masks``, one per
@@ -19,11 +20,14 @@ actor's parameters in place, between iterations:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
 
+from tvc_ai_torch.agents import optim
 from tvc_ai_torch.models.mlp import GaussianActor
 
 
@@ -51,6 +55,29 @@ class StabilityConfig:
     tau_decay: float = 0.999
 
     hacking_stop_threshold: float = 0.9
+
+
+def make_lr_schedule(cfg: StabilityConfig, base_lr: float, total_steps: int
+                     ) -> Callable[[int], float]:
+    """The learning rate at an update count (float32), as the reference's
+    optax schedule: constant when scheduling is off; ``linear`` base → 0
+    over ``total_steps``; ``exponential`` ``decay_factor`` every
+    ``max(total_steps // 10, 1)`` counts (staircase); ``cosine`` base → 0;
+    ``warmup_cosine`` from base · ``initial_lr_factor`` over
+    ``warmup_steps``, then cosine to 0; ``plateau`` ``decay_factor`` every
+    ``plateau_patience`` counts (staircase: the reference has no metric to
+    watch either)."""
+    if not cfg.enable_lr_scheduling:
+        return optim.make_schedule("constant", base_lr, total_steps)
+    t = cfg.scheduler_type
+    if t in ("linear", "cosine", "warmup_cosine"):
+        return optim.make_schedule(t, base_lr, total_steps, cfg.warmup_steps,
+                                   cfg.initial_lr_factor)
+    if t == "exponential":
+        return optim.staircase_decay(base_lr, max(total_steps // 10, 1), cfg.decay_factor)
+    if t == "plateau":
+        return optim.staircase_decay(base_lr, cfg.plateau_patience, cfg.decay_factor)
+    raise ValueError(f"unknown scheduler_type {t!r}")
 
 
 def adaptive_tau(cfg: StabilityConfig, update_step: int) -> float:
@@ -181,3 +208,14 @@ class TrainingStabilityManager:
         self._last_primacy = int(d.get("last_primacy", 0))
         self._last_dormant = int(d.get("last_dormant", 0))
 
+
+def create_stability_manager(total_steps: int, conservative: bool = False
+                             ) -> TrainingStabilityManager:
+    """The reference's preset: ``StabilityConfig``'s defaults, or with
+    ``conservative`` a slower warm-up (factor 0.05 over 20,000 counts) and
+    gentler resets (2 % of weights, 5 % of dormant units)."""
+    cfg = StabilityConfig()
+    if conservative:
+        cfg = dataclasses.replace(cfg, initial_lr_factor=0.05, warmup_steps=20_000,
+                                  reset_ratio=0.02, reinit_dormant_ratio=0.05)
+    return TrainingStabilityManager(cfg, total_steps)

@@ -154,7 +154,7 @@ class EnsembleTrainer:
                 lambda s, o: td3_mod.select_action(s.actor, o, td3_cfg, deterministic=True),
                 episodes),
             "ppo": make_policy_eval_fn(
-                lambda s, o: ppo_mod.select_action(s.actor, o, deterministic=True), episodes),
+                lambda s, o: ppo_mod.select_action(s, o, deterministic=True), episodes),
         }
         if self.world > 1:
             self.logger.info("ensemble data parallel: %d ranks (%s)", self.world,
