@@ -63,8 +63,10 @@ Phases [10], [10b] and [10c] drive the PPO+SAC+TD3 ensemble. [10] holds one
 td3 and the performance-weighted blend) and the stand-alone
 ``ppo.make_train_iteration`` on the card against the CPU: 64 envs x 16
 steps at the default widths, the learning gate open from the fourth step,
-the same draws, PPO over 4 epochs (at its default 10 a clip decision flips
-between the two and they part: printed, not held). [10b] runs
+the same draws, PPO over 4 epochs; then the ppo-acting iteration at PPO's
+default 10 epochs, with the minibatch rows whose clip decision differs card
+vs CPU counted and PPO's parameters held at 1e-4 where none did, else within
+a bound from its learning rate and the updates since the first. [10b] runs
 ``EnsembleTrainer`` on ``config/default.yaml`` with
 ``training.algorithm=ensemble`` (4096 envs x 128 steps): one iteration with
 each actor forced (PPO's GAE and epochs timed alone, and one PPO
@@ -203,6 +205,20 @@ reference's remaining names card vs CPU (the quaternion extras at 1e-6,
 ``ppo.select_action`` at 1e-5, an 8-step iteration with a constant
 ``act_fn`` at [7]'s bars) and reads ``DeviceManager("cuda")``'s memory.
 [18d] loads [9]'s ``metrics.csv`` and plots it where matplotlib imports.
+
+Phases [19a] and [19b] drive the last two options. [19a] holds
+``compute_dtype="bfloat16"`` at width 32 card vs CPU (the forward passes, one
+``sac.update`` by its parameter deltas, a 16-step iteration of 256 envs, at
+the bf16 bars of ``BF16_FWD``, ``BF16_DELTA``, ``BF16_OBS`` and
+``BF16_METRICS``), then times the default configuration in float32 and in
+bfloat16 in turns (a 128-step iteration of 4096 envs, one ``sac.update``'s
+device and host ms and device operations) and ``robust_full_r4d.yaml``'s
+learning step (16 updates of batch 1024). [19b] holds
+``hoist_bookkeeping=True`` at K = 4 (256 envs x 16 steps, learning on) card
+vs CPU at [7]'s bars and against the per-step cadence on the card on the same
+draws with the updates gated off (1e-6), then times the default
+configuration with ``update_interval`` 4 and a 999,424-row replay, per-step
+cadence and hoisted in turns, and profiles one chunk of each.
 
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
@@ -772,14 +788,55 @@ def ensemble_both(actor: str, cfg: ensemble.EnsembleConfig, short: EnvParams, se
     return out["cuda"], out["cpu"]
 
 
+def hold_ensemble_rollout(a, b, am: dict, bm: dict, metrics=None) -> None:
+    """An ensemble iteration's rollout card (``a``) vs CPU (``b``) at the env
+    bars, and the metrics named in ``metrics`` (default: all) at METRICS."""
+    torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
+    for k in ("obs", "next_obs", "action"):
+        torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+    torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"], **REWARD)
+    assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated"
+    for name in ("episodes", "successes", "ep_length"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
+    assert torch.equal(a.env_states.step_count.cpu(), b.env_states.step_count), "truncation"
+    for k in bm if metrics is None else metrics:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+
+
+@contextlib.contextmanager
+def recording_clip_decisions(record: dict):
+    """Within the block, each ``ppo.update`` first appends its minibatch's
+    clip decisions (|ratio - 1| > clip_range per row, from the same forward
+    the update takes) to ``record[device type]``."""
+    original = ppo.update
+
+    def recording(state, batch, cfg, axis_name=None):
+        with torch.no_grad():
+            mean, log_std = state.actor(batch["obs"])
+            ratio = torch.exp(ppo.dist.log_prob(mean, log_std, batch["pre_tanh"])
+                              - batch["log_prob"])
+            record.setdefault(ratio.device.type, []).append(
+                (ratio - 1.0).abs() > cfg.clip_range)
+        return original(state, batch, cfg, axis_name)
+
+    ppo.update = recording
+    try:
+        yield
+    finally:
+        ppo.update = original
+
+
 def ensemble_card_vs_cpu(short: EnvParams) -> float:
     """[10]: one ``make_ensemble_iteration`` per acting member and the
     stand-alone PPO iteration, card (K1) against CPU (plain), at default
-    widths; returns the largest parameter difference held.
-
-    PPO is held at 4 epochs (32 updates): at its default 10 the approximate
-    KL reaches ~0.7, a ratio crosses the clip edge on one side only, and the
-    two runs part (printed, not held, as [9a] prints its full horizon)."""
+    widths, PPO over 4 epochs (32 updates); then the ppo-acting iteration at
+    PPO's default 10 epochs, where the approximate KL reaches ~0.7 and a
+    ratio can cross the clip edge on one side only: the minibatch rows whose
+    clip decision differs card vs CPU are counted, and PPO's parameters are
+    held at PARAMS where none did, else within PARAMS plus the most Adam
+    could move them from the first such update on (MAX_ADAM_STEP × its
+    learning rate × those updates); SAC's and TD3's at PARAMS. Returns the
+    largest parameter difference held at PARAMS."""
     cfg = ensemble.EnsembleConfig(
         sac=sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=ENS_STEPS * ENS_N,
                                  learning_starts=4 * ENS_N)),
@@ -787,17 +844,7 @@ def ensemble_card_vs_cpu(short: EnvParams) -> float:
     worst = 0.0
     for i, actor in enumerate(ensemble.ACTORS):
         (a, am), (b, bm) = ensemble_both(actor, cfg, short, SEED + 20 + i)
-        torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
-        for k in ("obs", "next_obs", "action"):
-            torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
-        torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"],
-                                   **REWARD)
-        assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated"
-        for name in ("episodes", "successes", "ep_length"):
-            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
-        assert torch.equal(a.env_states.step_count.cpu(), b.env_states.step_count), "truncation"
-        for k in bm:
-            torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+        hold_ensemble_rollout(a, b, am, bm)
         err = member_param_err(a, b)
         worst = max(worst, err)
         updates = (a.sac.step, a.td3.step, a.ppo.step)
@@ -807,14 +854,41 @@ def ensemble_card_vs_cpu(short: EnvParams) -> float:
             f"terminations and episode ends equal ({int(b.episodes.sum())} episode ends), "
             f"SAC/TD3/PPO updates {updates}, max |d param| over the three members {err:.3e} "
             f"(atol {PARAMS['atol']}): ok")
-    # PPO at its default epochs: not held
+    # PPO at its default epochs, held with its clip decisions counted
     full = dataclasses.replace(cfg, ppo=ppo.PPOConfig())
-    (a, am), (b, bm) = ensemble_both("ppo", full, short, SEED + 20)
+    decisions: dict = {}
+    with recording_clip_decisions(decisions):
+        (a, am), (b, bm) = ensemble_both("ppo", full, short, SEED + 20)
+    card, host = decisions["cuda"], decisions["cpu"]
+    assert len(card) == len(host) == a.ppo.step == b.ppo.step, (len(card), len(host))
+    per_update = [int((x.cpu() != y).sum()) for x, y in zip(card, host)]
+    flipped = sum(per_update)
+    first = next((u for u, f in enumerate(per_update) if f), len(per_update))
+    hold_ensemble_rollout(a, b, am, bm, [k for k in bm if not k.startswith("ppo_") or not flipped])
+    for member in ("sac", "td3"):
+        for net in MEMBER_NETS[member]:
+            worst = max(worst, net_param_err(getattr(getattr(a, member), net),
+                                             getattr(getattr(b, member), net), f"{member}.{net}"))
+    torch.testing.assert_close(a.sac.log_alpha.cpu(), b.sac.log_alpha, **PARAMS)
+    ppo_bound = PARAMS["atol"] + MAX_ADAM_STEP * full.ppo.learning_rate * (len(per_update) - first)
+    ppo_err = max(net_param_err(getattr(a.ppo, net), getattr(b.ppo, net), f"ppo.{net}",
+                                hold=not flipped) for net in MEMBER_NETS["ppo"])
+    assert ppo_err <= ppo_bound, (ppo_err, ppo_bound)
+    if not flipped:
+        worst = max(worst, ppo_err)
+    rows = sum(x.numel() for x in host)
     log(f"[10] ensemble iteration, ppo acting, {full.ppo.n_epochs} epochs ({a.ppo.step} "
-        f"updates), not held: max |d param| over the three members "
-        f"{member_param_err(a, b, hold=False):.3e}; clip_fraction card "
+        f"updates of {host[0].numel()} rows), card (K1) vs CPU (plain): clip decisions that "
+        f"differ {flipped} of {rows} minibatch rows"
+        + (f" (first in update {first + 1})" if flipped else "")
+        + f"; max |d param| PPO {ppo_err:.3e} (held "
+        + (f"within {ppo_bound:.3e} = {PARAMS['atol']} + {MAX_ADAM_STEP} x lr "
+           f"{full.ppo.learning_rate} x {len(per_update) - first} updates" if flipped
+           else f"at atol {PARAMS['atol']}")
+        + f"), SAC/TD3 at atol {PARAMS['atol']}; clip_fraction card "
         f"{float(am['ppo_clip_fraction']):.6f}, CPU {float(bm['ppo_clip_fraction']):.6f}; "
-        f"approx_kl card {float(am['ppo_approx_kl']):.6f}, CPU {float(bm['ppo_approx_kl']):.6f}")
+        f"approx_kl card {float(am['ppo_approx_kl']):.6f}, CPU {float(bm['ppo_approx_kl']):.6f}"
+        f"{' (PPO metrics printed, not held: rows flipped)' if flipped else ''}: ok")
     # the stand-alone PPO iteration, at the same bars
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -3486,6 +3560,388 @@ def plots_of_trainer_run(scratch: Path) -> None:
     log(f"[18d] plots: {', '.join(f'{a.name} ({a.stat().st_size} B)' for a in artifacts)}")
 
 
+BF16_WIDTH = (32, 32)            # [19a] card vs CPU at width 32
+BF16_ROWS = 256                  # [19a] the forward passes' rows and the update's batch
+BF16_FWD = dict(atol=1e-4, rtol=1e-3)   # bf16 forward bar (tests/test_torch_bf16.py)
+BF16_DELTA = 1e-5                # an update's parameter delta card vs CPU, but for
+BF16_DELTA_SHARE = 0.01          # this share of elements whose tiny gradient rounds the other way
+BF16_OBS = dict(atol=1e-3, rtol=1e-2)      # [19a] the bf16 iteration's obs, replay rows, reward
+BF16_METRICS = dict(atol=1e-4, rtol=1e-2)  # [19a] the bf16 iteration's mean metrics
+BF16_N, BF16_STEPS = 256, 16     # [19a] the bf16 iteration card vs CPU
+BF16_PARTED = 8                  # [19a] at most 1 env in 8 parted by a rounding flip (as [16b])
+WARM_UP_STEPS = 4                # [19a], [19b] a warm-up iteration's steps before the timed ones
+BF16_ROBUST_STEPS = 4            # [19a] timed robust_full_r4d.yaml steps a dtype and turn
+DTYPES = ("float32", "bfloat16")
+
+
+def held_update_deltas(card, host, before: dict, lrs: dict) -> tuple[float, int]:
+    """One update's parameter deltas card vs CPU per network: all but
+    BF16_DELTA_SHARE of the elements within BF16_DELTA, every element within
+    2 × lr + BF16_DELTA (Adam's first step is ±lr: a gradient near zero that
+    rounds to the other sign moves 2 × lr). Returns (largest difference,
+    elements beyond BF16_DELTA)."""
+    worst, over = 0.0, 0
+    for net, lr in lrs.items():
+        got = torch.cat([(p.detach().cpu() - b).flatten()
+                         for p, b in zip(getattr(card, net).parameters(), before[net])])
+        want = torch.cat([(q.detach() - b).flatten()
+                          for q, b in zip(getattr(host, net).parameters(), before[net])])
+        err = (got - want).abs()
+        n_over = int((err > BF16_DELTA).sum())
+        assert n_over <= BF16_DELTA_SHARE * err.numel(), (net, n_over, err.numel())
+        assert float(err.max()) <= 2 * lr + BF16_DELTA, (net, float(err.max()), lr)
+        worst, over = max(worst, float(err.max())), over + n_over
+    return worst, over
+
+
+def held_bf16_params(a, b, cfg: sac.SACConfig, updates: int) -> tuple[float, int]:
+    """A bf16 learner card vs CPU after ``updates`` updates: all but
+    BF16_DELTA_SHARE of each tensor's elements within PARAMS, every element
+    within PARAMS plus the most Adam could move it (MAX_ADAM_STEP × the
+    network's learning rate × ``updates``). Returns (largest difference,
+    elements beyond PARAMS)."""
+    worst, over = 0.0, 0
+    for net, lr in (("actor", cfg.lr_actor), ("critic", cfg.lr_critic),
+                    ("target_critic", cfg.lr_critic)):
+        for (name, p), q in zip(getattr(a, net).named_parameters(), getattr(b, net).parameters()):
+            d = (p.detach().cpu() - q.detach()).abs()
+            n_over = int((d > PARAMS["atol"]).sum())
+            assert n_over <= max(1, int(BF16_DELTA_SHARE * d.numel())), (net, name, n_over)
+            assert float(d.max()) <= PARAMS["atol"] + MAX_ADAM_STEP * lr * updates, (net, name)
+            worst, over = max(worst, float(d.max())), over + n_over
+    return worst, over
+
+
+def bf16_card_vs_cpu(dev, short: EnvParams) -> int:
+    """[19a]: ``compute_dtype="bfloat16"`` at width 32, card against CPU: the
+    actor's and the critic's forward passes at BF16_FWD, one ``sac.update``
+    by its parameter deltas (``held_update_deltas``) and its losses at 1e-3
+    relative, then a 16-step train iteration of 256 envs (learning from the
+    fourth step): its metrics at BF16_METRICS, its learner by
+    ``held_bf16_params``; every env but those parted by a rounding flip with
+    its stored and final obs, actions and rewards at BF16_OBS, its
+    terminations and episode counts equal. Once the learned actors differ
+    by float32 rounding (~1e-7), a weight or activation that rounds to the
+    other bfloat16 neighbour moves an action by ~3e-3, and the env's state
+    parts from there on (the CPU alone parts so under a 1e-7 perturbation of
+    its actor); an env is parted from the first step where its action
+    differs by more than BF16_FWD, and at most 1 env in BF16_PARTED may
+    part. Returns the iteration's K1 launches."""
+    n_obs = obs_dim(short)
+    gen = torch.Generator().manual_seed(SEED + 90)
+    cfg = sac.SACConfig(**dict(DEFAULT_SAC, hidden_dims=BF16_WIDTH, batch_size=BF16_ROWS,
+                               compute_dtype="bfloat16"))
+    sides = {"cpu": torch.device("cpu"), "card": dev}
+    agents = {k: sac.init(n_obs, 2, cfg, device=w, seed=SEED) for k, w in sides.items()}
+    assert agents["card"].actor.dtype == agents["card"].critic.q1.dtype == torch.bfloat16
+    batch = {"obs": torch.randn(BF16_ROWS, n_obs, generator=gen),
+             "action": torch.rand(BF16_ROWS, 2, generator=gen) * 2.0 - 1.0,
+             "reward": torch.randn(BF16_ROWS, generator=gen) * 30.0,
+             "next_obs": torch.randn(BF16_ROWS, n_obs, generator=gen),
+             "done": (torch.rand(BF16_ROWS, generator=gen) < 0.2).to(torch.float32)}
+    with torch.no_grad():
+        fwd = {k: (*s.actor(batch["obs"].to(sides[k])),
+                   *s.critic(batch["obs"].to(sides[k]), batch["action"].to(sides[k])))
+               for k, s in agents.items()}
+    fwd_err = 0.0
+    for name, x, y in zip(("mean", "log_std", "q1", "q2"), fwd["card"], fwd["cpu"]):
+        assert x.dtype == torch.float32, name
+        torch.testing.assert_close(x.cpu(), y, **BF16_FWD, msg=name)
+        fwd_err = max(fwd_err, float((x.cpu() - y).abs().max()))
+    draws = sac.UpdateDraws(n_next=torch.randn(BF16_ROWS, 2, generator=gen),
+                            n_pi=torch.randn(BF16_ROWS, 2, generator=gen))
+    before = {net: [p.detach().clone() for p in getattr(agents["cpu"], net).parameters()]
+              for net in ("actor", "critic")}
+    upd = {k: sac.update(s, {n: v.to(sides[k]) for n, v in batch.items()}, cfg,
+                         to_device(draws, sides[k]))[1]
+           for k, s in agents.items()}
+    torch.cuda.synchronize()
+    delta_err, delta_over = held_update_deltas(agents["card"], agents["cpu"], before,
+                                               {"actor": cfg.lr_actor, "critic": cfg.lr_critic})
+    for k in upd["cpu"]:
+        torch.testing.assert_close(upd["card"][k].cpu(), upd["cpu"][k], rtol=1e-3, atol=1e-6,
+                                   msg=k)
+    log(f"[19a] bf16 at width {BF16_WIDTH}, card vs CPU: forward ({BF16_ROWS} rows) max |d| "
+        f"{fwd_err:.3e} (atol {BF16_FWD['atol']}, rtol {BF16_FWD['rtol']}); one sac.update's "
+        f"parameter deltas max |d| {delta_err:.3e}, {delta_over} elements beyond "
+        f"{BF16_DELTA}; critic_loss {float(upd['card']['critic_loss']):.6g} vs "
+        f"{float(upd['cpu']['critic_loss']):.6g}: ok")
+
+    it_sac = dataclasses.replace(cfg, batch_size=DEFAULT_SAC["batch_size"],
+                                 buffer_size=32 * BF16_N, learning_starts=4 * BF16_N)
+    it_loop = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=BF16_N, rollout_steps=BF16_STEPS),
+                                   obs_dim=n_obs)
+    reset_draws, iter_draws = learner_draws(short, BF16_N, BF16_STEPS, it_sac,
+                                            torch.Generator().manual_seed(SEED + 91))
+    runs = {}
+    for k, where in sides.items():
+        carry = loop.init_carry(short, it_sac, it_loop, device=where, seed=SEED,
+                                reset_draws=to_device(reset_draws, where))
+        it = loop.make_train_iteration(it_sac, it_loop)
+        k1.step_kernel.launches = 0
+        runs[k] = it(carry, short, to_device(iter_draws, where))
+        launches = k1.step_kernel.launches
+    torch.cuda.synchronize()
+    (a, am), (b, bm) = runs["card"], runs["cpu"]
+    updates = sum(1 for d in iter_draws if d.samples)
+    assert a.agent.step == b.agent.step == updates > 0 and launches == BF16_STEPS, launches
+    rows = BF16_STEPS * BF16_N
+    card = {k: v[:rows].cpu().reshape(BF16_STEPS, BF16_N, -1) for k, v in a.buffer.data.items()}
+    host = {k: v[:rows].reshape(BF16_STEPS, BF16_N, -1) for k, v in b.buffer.data.items()}
+    act_off = ((card["action"] - host["action"]).abs()
+               > BF16_FWD["atol"] + BF16_FWD["rtol"] * host["action"].abs()).any(-1)
+    parted = torch.cumsum(act_off.to(torch.int32), 0) > 0     # (steps, envs): parted at or before
+    n_parted = int(parted[-1].sum())
+    assert n_parted <= BF16_N // BF16_PARTED, (n_parted, BF16_N // BF16_PARTED)
+    before = ~torch.cat([torch.zeros_like(parted[:1]), parted[:-1]])   # not parted before step t
+    for k, keep in (("obs", before), ("action", ~parted), ("reward", ~parted),
+                    ("next_obs", ~parted)):
+        torch.testing.assert_close(card[k][keep], host[k][keep], **BF16_OBS,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    assert torch.equal(card["done"][~parted], host["done"][~parted]), "terminated differs"
+    whole = ~parted[-1]
+    torch.testing.assert_close(a.obs.cpu()[whole], b.obs[whole], **BF16_OBS)
+    for name in ("episodes", "ep_length"):
+        assert torch.equal(getattr(a, name).cpu()[whole], getattr(b, name)[whole]), name
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **BF16_METRICS, msg=k)
+    param_err, param_over = held_bf16_params(a.agent, b.agent, it_sac, updates)
+    log(f"[19a] bf16 train iteration {BF16_N} envs x {BF16_STEPS} steps at width {BF16_WIDTH}, "
+        f"{updates} updates, card (K1) vs CPU: max |d obs| "
+        f"{float((a.obs.cpu() - b.obs).abs().max()):.3e} (atol {BF16_OBS['atol']}, rtol "
+        f"{BF16_OBS['rtol']}) but for {n_parted} of {BF16_N} envs parted by a rounding flip, "
+        f"max |d action| {float((card['action'] - host['action']).abs().max()):.3e}, "
+        f"the others' terminations and episode ends equal ({int(b.episodes.sum())} in all), "
+        f"max |d param| {param_err:.3e} ({param_over} elements beyond {PARAMS['atol']}), "
+        f"critic_loss {float(am['critic_loss']):.6g} vs {float(bm['critic_loss']):.6g}; "
+        f"K1 launches {launches}: ok")
+    return launches
+
+
+def update_launches(agent, batch: dict, cfg: sac.SACConfig, gen: torch.Generator) -> int:
+    """The device operations one ``sac.update`` launches, from a profiled call."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sac.update(agent, batch, cfg, generator=gen)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def timed_in_turns(runs: dict, order, env_params, steps: int) -> tuple[dict, int]:
+    """One synchronised iteration of each ``runs[name] = [carry, iteration]``
+    in ``order``, carrying on; returns (seconds by name, K1 launches)."""
+    k1.step_kernel.launches = 0
+    seconds = {name: [] for name in runs}
+    for name in order:
+        carry, it = runs[name]
+        t0 = time.perf_counter()
+        carry, metrics = it(carry, env_params)
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - t0)
+        assert all(math.isfinite(float(v)) for v in metrics.values()), (name, metrics)
+        runs[name][0] = carry
+    launches = k1.step_kernel.launches
+    assert launches == len(order) * steps, (launches, len(order) * steps)
+    return seconds, launches
+
+
+def bf16_full_width(dev, env_params: EnvParams) -> dict:
+    """[19a]: the default configuration in float32 and in bfloat16, in turns
+    (A B B A): one synchronised iteration of 4096 envs x 128 steps ([8]'s
+    measure), one ``sac.update`` at batch 256 (device and host ms, [8b]'s
+    measures, and its device operations), and ``robust_full_r4d.yaml``'s
+    learning step (512 envs, 16 updates of batch 1024) over 4 steps. Returns
+    the K1 launches of the timed runs."""
+    n_obs = obs_dim(env_params)
+    lp = loop.TrainLoopConfig(**DEFAULT_LOOP, obs_dim=n_obs)
+    cfgs = {d: sac.SACConfig(**DEFAULT_SAC, compute_dtype=d) for d in DTYPES}
+    runs = {}
+    for d, cfg in cfgs.items():
+        carry = loop.init_carry(env_params, cfg, lp, device=dev, seed=SEED + 6)
+        carry, _ = loop.make_train_iteration(cfg, dataclasses.replace(
+            lp, rollout_steps=WARM_UP_STEPS))(carry, env_params)
+        runs[d] = [carry, loop.make_train_iteration(cfg, lp)]
+    torch.cuda.synchronize()
+    order = DTYPES + DTYPES[::-1]
+    seconds, launches = timed_in_turns(runs, order, env_params, lp.rollout_steps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    upd = {}
+    for d in order:
+        carry, cfg = runs[d][0], cfgs[d]
+        batch = replay.sample(carry.buffer, cfg.batch_size, generator=gen)
+        dev_ms = device_ms(lambda: sac.update(carry.agent, batch, cfg, generator=gen),
+                           reps=15, inner=1)
+        h_ms = host_us(lambda: sac.update(carry.agent, batch, cfg, generator=gen),
+                       reps=5, inner=10) / 1e3
+        upd.setdefault(d, []).append((dev_ms, h_ms))
+    ops = {d: update_launches(runs[d][0].agent, replay.sample(runs[d][0].buffer, 256,
+                                                              generator=gen), cfgs[d], gen)
+           for d in DTYPES}
+    for d in DTYPES:
+        log(f"[19a] default config in {d}: {N_ENVS} envs x {lp.rollout_steps} steps, "
+            f"{seconds[d][0]:.4f} s, {seconds[d][1]:.4f} s per iteration = "
+            + ", ".join(f"{N_ENVS * lp.rollout_steps / t:.1f}" for t in seconds[d])
+            + " train env steps/s; sac.update at batch 256: device "
+            + ", ".join(f"{x[0]:.4f}" for x in upd[d]) + " ms, host "
+            + ", ".join(f"{x[1]:.4f}" for x in upd[d])
+            + f" ms per call; {ops[d]} device operations per update")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rcfg = robust_config()
+    r_params, r_loop = build_env_params(rcfg), build_loop_config(rcfg)
+    r_loop = dataclasses.replace(r_loop, rollout_steps=BF16_ROBUST_STEPS)
+    runs = {}
+    for d in DTYPES:
+        r_sac = dataclasses.replace(build_sac_config(rcfg), compute_dtype=d)
+        carry = loop.init_carry(r_params, r_sac, r_loop, device=dev, seed=SEED + 8)
+        carry, _ = loop.make_train_iteration(r_sac, dataclasses.replace(
+            r_loop, rollout_steps=WARM_UP_STEPS))(carry, r_params)
+        assert carry.buffer.size >= r_sac.learning_starts, carry.buffer.size
+        runs[d] = [carry, loop.make_train_iteration(r_sac, r_loop)]
+    torch.cuda.synchronize()
+    r_seconds, r_launches = timed_in_turns(runs, order, r_params, BF16_ROBUST_STEPS)
+    for d in DTYPES:
+        log(f"[19a] {ROBUST_YAML} in {d}: {r_loop.num_envs} envs, {r_loop.updates_per_step} "
+            f"updates of batch {build_sac_config(rcfg).batch_size} per step: "
+            + ", ".join(f"{t / BF16_ROBUST_STEPS * 1e3:.2f}" for t in r_seconds[d])
+            + " ms per step")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16_default": launches, "bf16_robust_r4d": r_launches}
+
+
+HOIST_K = 4                      # [19b] update_interval
+HOIST_N, HOIST_STEPS = 256, 16   # [19b] card vs CPU
+HOIST_BUFFER = 999_424           # [19b] 61 x 4 x 4096: the capacity the default's 1,000,000 rounds to
+SAME_DRAWS = dict(atol=1e-6, rtol=1e-5)   # [19b] hoisted vs per-step cadence on the same draws
+
+
+def hoisted_card_vs_cpu(dev, short: EnvParams) -> dict:
+    """[19b]: ``hoist_bookkeeping=True`` at K = 4, 256 envs x 16 steps,
+    learning on, card (K1) against CPU at [7]'s bars; then on the card the
+    hoisted iteration against the per-step cadence on the same draws with
+    the updates gated off, at SAME_DRAWS. Returns the K1 launches."""
+    n_obs = obs_dim(short)
+    cfg = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=32 * HOIST_N,
+                               learning_starts=4 * HOIST_N))
+    lp = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, num_envs=HOIST_N, rollout_steps=HOIST_STEPS,
+                                     update_interval=HOIST_K, hoist_bookkeeping=True),
+                              obs_dim=n_obs)
+    reset_draws, iter_draws = learner_draws(short, HOIST_N, HOIST_STEPS, cfg,
+                                            torch.Generator().manual_seed(SEED + 93))
+    runs, launches = {}, {}
+    for k, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        carry = loop.init_carry(short, cfg, lp, device=where, seed=SEED,
+                                reset_draws=to_device(reset_draws, where))
+        it = loop.make_train_iteration(cfg, lp)
+        assert it.hoisted
+        k1.step_kernel.launches = 0
+        runs[k] = it(carry, short, to_device(iter_draws, where))
+        launches["hoisted_card_vs_cpu"] = k1.step_kernel.launches
+    torch.cuda.synchronize()
+    (a, am), (b, bm) = runs["card"], runs["cpu"]
+    assert launches["hoisted_card_vs_cpu"] == HOIST_STEPS
+    torch.testing.assert_close(a.obs.cpu(), b.obs, **OBS)
+    for k in ("obs", "next_obs", "action"):
+        torch.testing.assert_close(a.buffer.data[k].cpu(), b.buffer.data[k], **OBS, msg=k)
+    torch.testing.assert_close(a.buffer.data["reward"].cpu(), b.buffer.data["reward"], **REWARD)
+    assert torch.equal(a.buffer.data["done"].cpu(), b.buffer.data["done"]), "terminated differs"
+    for name in ("episodes", "successes", "ep_length", "ep_ring_length", "ep_ring_seq",
+                 "ep_ring_ptr"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), f"{name} differs"
+    for name in ("ep_return", "return_sum", "ep_ring_return"):
+        torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name), **REWARD, msg=name)
+    for k in bm:
+        torch.testing.assert_close(am[k].cpu(), bm[k], **METRICS, msg=k)
+    events = HOIST_STEPS // HOIST_K
+    assert a.agent.step == b.agent.step == events, (a.agent.step, b.agent.step)
+    param_err = max(net_param_err(getattr(a.agent, net), getattr(b.agent, net), net)
+                    for net in ("actor", "critic", "target_critic"))
+    torch.testing.assert_close(a.agent.log_alpha.cpu(), b.agent.log_alpha, **PARAMS)
+    log(f"[19b] hoisted iteration K = {HOIST_K}, {HOIST_N} envs x {HOIST_STEPS} steps, "
+        f"{events} update events, card (K1) vs CPU: max |d obs| "
+        f"{float((a.obs.cpu() - b.obs).abs().max()):.3e}, episode ends and ring equal "
+        f"({int(b.episodes.sum())} episode ends), max |d param| {param_err:.3e} (atol "
+        f"{PARAMS['atol']}): ok")
+
+    gated = dataclasses.replace(cfg, learning_starts=10**9)
+    out = {}
+    k1.step_kernel.launches = 0
+    for hoist in (True, None):
+        carry = loop.init_carry(short, gated, lp, device=dev, seed=SEED,
+                                reset_draws=to_device(reset_draws, dev))
+        it = loop.make_train_iteration(gated, dataclasses.replace(lp, hoist_bookkeeping=hoist))
+        assert it.hoisted == bool(hoist)
+        out[bool(hoist)] = it(carry, short, to_device(iter_draws, dev))
+    torch.cuda.synchronize()
+    launches["hoisted_vs_cadence"] = k1.step_kernel.launches
+    (h, hm), (c, cm) = out[True], out[False]
+    worst = 0.0
+    pairs = [("obs", h.obs, c.obs)] + [(f"buffer.{k}", h.buffer.data[k], c.buffer.data[k])
+                                        for k in h.buffer.data]
+    pairs += [(name, getattr(h, name), getattr(c, name)) for name in (
+        "env_steps", "episodes", "successes", "ep_return", "ep_length", "return_sum",
+        "length_sum", "ep_ring_return", "ep_ring_length", "ep_ring_success", "ep_ring_seq",
+        "ep_ring_ptr")]
+    pairs += [(k, hm[k], cm[k]) for k in ("reward_mean", "done_frac")]
+    for name, x, y in pairs:
+        assert x.dtype == y.dtype, name
+        torch.testing.assert_close(x.double(), y.double(), **SAME_DRAWS, msg=name)
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    assert h.agent.step == c.agent.step == 0 and launches["hoisted_vs_cadence"] == 2 * HOIST_STEPS
+    log(f"[19b] hoisted vs per-step cadence on the card, same draws, updates gated off: max |d| "
+        f"{worst:.3e} over obs, replay rows, counters, ring and metrics (atol "
+        f"{SAME_DRAWS['atol']}, rtol {SAME_DRAWS['rtol']}): ok")
+    return launches
+
+
+def hoisted_full_width(dev, env_params: EnvParams) -> dict:
+    """[19b]: the default configuration with ``update_interval`` 4 and
+    ``buffer_size`` HOIST_BUFFER, per-step cadence and hoisted in turns (A B
+    B A, one synchronised 128-step iteration each): ms per env step; then one
+    profiled chunk of each (device busy, idle and operations per env step).
+    Returns the K1 launches of the timed runs."""
+    n_obs = obs_dim(env_params)
+    cfg = sac.SACConfig(**dict(DEFAULT_SAC, buffer_size=HOIST_BUFFER))
+    base = loop.TrainLoopConfig(**dict(DEFAULT_LOOP, update_interval=HOIST_K), obs_dim=n_obs)
+    paths = {"per-step": dataclasses.replace(base, hoist_bookkeeping=None),
+             "hoisted": dataclasses.replace(base, hoist_bookkeeping=True)}
+    runs = {}
+    for name, lp in paths.items():
+        carry = loop.init_carry(env_params, cfg, lp, device=dev, seed=SEED + 6)
+        assert carry.buffer.capacity == HOIST_BUFFER, carry.buffer.capacity
+        carry, _ = loop.make_train_iteration(cfg, dataclasses.replace(
+            lp, rollout_steps=WARM_UP_STEPS))(carry, env_params)
+        it = loop.make_train_iteration(cfg, lp)
+        assert it.hoisted == (name == "hoisted")
+        runs[name] = [carry, it]
+    torch.cuda.synchronize()
+    order = ("per-step", "hoisted", "hoisted", "per-step")
+    seconds, launches = timed_in_turns(runs, order, env_params, base.rollout_steps)
+    for name, lp in paths.items():
+        chunk = loop.make_train_iteration(cfg, dataclasses.replace(lp, rollout_steps=HOIST_K))
+        carry = runs[name][0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, _ = chunk(carry, env_params)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / HOIST_K * 1e3
+        runs[name][0] = carry
+        log(f"[19b] {name} at K = {HOIST_K}, default config: "
+            + ", ".join(f"{t / base.rollout_steps * 1e3:.4f}" for t in seconds[name])
+            + f" ms per env step over {base.rollout_steps}-step iterations")
+        device_breakdown(prof, HOIST_K, step_ms, "[19b]",
+                         f"{name}, one profiled chunk of {HOIST_K} steps ({N_ENVS} envs)", top=5)
+        del prof
+        gc.collect()
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"hoisted_default": launches}
+
+
 def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
     """[9a]: K1 against its plain version below one block, at N = 1 (the
     single-env path of [17], in contact too), 2, 20 and 50, each N's time
@@ -4108,6 +4564,16 @@ def main() -> int:
         ensemble_launches["act_fn_iteration"] = remnants_card_vs_cpu(dev, short)
         phase("[18d]")
         plots_of_trainer_run(scratch)
+
+        # ---- 19. the last two options: bfloat16 compute card vs CPU and
+        # against float32 at full width; the hoisted chunk path card vs CPU,
+        # against the per-step cadence, and at full width
+        phase("[19a]")
+        ensemble_launches["bf16_card_vs_cpu"] = bf16_card_vs_cpu(dev, short)
+        ensemble_launches.update(bf16_full_width(dev, env_params))
+        phase("[19b]")
+        ensemble_launches.update(hoisted_card_vs_cpu(dev, short))
+        ensemble_launches.update(hoisted_full_width(dev, env_params))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -168,7 +168,8 @@ def test_build_env_params_as_in_jax(name):
     ["training.demo_seeding.enabled=true", "training.demo_seeding.bc_weight=0.5",
      "training.demo_seeding.fraction=0.25", "safety.enabled=false",
      "env.trim_observation.enabled=true", "network.history_len=2"],
-], ids=["default", "schedules", "demo_bc"])
+    ["algorithms.sac.compute_dtype=bfloat16"],
+], ids=["default", "schedules", "demo_bc", "bfloat16"])
 def test_sac_and_loop_configs_as_in_jax(overrides):
     path = t_loader.default_config_path()
     port = t_loader.load_config(path, overrides)
@@ -177,20 +178,6 @@ def test_sac_and_loop_configs_as_in_jax(overrides):
     for f in dataclasses.fields(SACConfig):
         assert getattr(t_sac, f.name) == getattr(j_sac, f.name), f.name
     assert_loop_configs_equal(t_build.build_loop_config(port), j_build.build_loop_config(ref))
-
-
-UNPORTED = {
-    "bfloat16": ["algorithms.sac.compute_dtype=bfloat16"],
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_fail_when_built(name):
-    cfg = t_loader.load_config(None, UNPORTED[name])
-    with pytest.raises(NotImplementedError):
-        t_build.build_env_params(cfg)
-        t_build.build_sac_config(cfg)
-        t_build.build_loop_config(cfg)
 
 
 EXTENSIONS = {

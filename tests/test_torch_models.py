@@ -119,7 +119,3 @@ def test_apply_safety_matches_jax():
     assert bool((tilt > 0.52).any() and (omega_mag > 5.0).any() and (effort > 1.0).any())
     assert 0 < int(t_mask.sum()) < n
 
-
-def test_bfloat16_compute_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        t_sac.SACConfig(compute_dtype="bfloat16")

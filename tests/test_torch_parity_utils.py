@@ -26,6 +26,11 @@ consumes, so both packages can be fed the same numbers:
   randint(k_s, (B - n_demo,), 0, max(size, 1)), the demo rows
   randint(k_d, (n_demo,), 0, max(demo size, 1)); ``sac.update`` splits k_u
   into (k_next, k_pi), each drawing normal(·, (B, A));
+- the hoisted chunk (``hoist_bookkeeping``, K steps a chunk): each chunk
+  splits the carry's key into (k_act_all, k_sample_update, k_chain) and
+  k_act_all into K keys, step j's action noise being normal(key j, (N, A));
+  the chunk's one update event splits from k_sample_update as above, and
+  the carry's key moves on to k_chain (``hoisted_iteration_draws``);
 - PPO epochs: each splits the key into (key, k_perm, k_up) and permutes the
   T·N rows with permutation(k_perm, T·N);
 - where a JAX iteration vmaps ``rocket_env.step_autoreset`` itself (PPO,
@@ -186,8 +191,7 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
     each step's write. Steps that take no update get no ``SampleDraws``.
     ``rank`` replays data-parallel rank ``rank``'s draws (``loop_cfg`` and
     ``sac_cfg`` are then the rank's local configs)."""
-    n, a, b = loop_cfg.num_envs, loop_cfg.action_dim, sac_cfg.batch_size
-    n_demo = int(round(b * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
+    n, a = loop_cfg.num_envs, loop_cfg.action_dim
     every = max(loop_cfg.update_interval, 1)
     out = []
     for t in range(loop_cfg.rollout_steps):
@@ -200,15 +204,47 @@ def iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
                 jax.random.fold_in(k_act, 17), (n, loop_cfg.hierarchical.num_goals)))
         samples = []
         if t % every == every - 1 and sizes[t] >= sac_cfg.learning_starts:
-            k = k_update
-            for _ in range(loop_cfg.updates_per_step):
-                k_s, k_d, k_u, k = jax.random.split(k, 4)
-                samples.append(SampleDraws(
-                    idx=sample_idx(k_s, b - n_demo, sizes[t]),
-                    idx_demo=sample_idx(k_d, n_demo, demo_size) if n_demo else None,
-                    update=update_draws(k_u, b, a),
-                ))
+            samples = update_event_draws(k_update, sizes[t], sac_cfg, loop_cfg, demo_size)
         out.append(IterDraws(step=step, samples=samples))
+    return out
+
+
+def update_event_draws(key, size: int, sac_cfg, loop_cfg, demo_size: int = 0
+                       ) -> list[SampleDraws]:
+    """The ``SampleDraws`` of one update event that splits from ``key`` over
+    a buffer holding ``size`` rows."""
+    a, b = loop_cfg.action_dim, sac_cfg.batch_size
+    n_demo = int(round(b * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
+    samples = []
+    for _ in range(loop_cfg.updates_per_step):
+        k_s, k_d, k_u, key = jax.random.split(key, 4)
+        samples.append(SampleDraws(
+            idx=sample_idx(k_s, b - n_demo, size),
+            idx_demo=sample_idx(k_d, n_demo, demo_size) if n_demo else None,
+            update=update_draws(k_u, b, a),
+        ))
+    return samples
+
+
+def hoisted_iteration_draws(chain: KeyChain, key, env_keys, sizes, sac_cfg, loop_cfg,
+                            demo_size: int = 0, rank: int | None = None) -> list[IterDraws]:
+    """``iteration_draws`` for the reference's hoisted chunk path: per chunk of
+    K steps, ``split(key, 3)`` (after ``fold_in(key, rank)`` with ``rank``),
+    the K action keys from the first part, the chunk's update event, on its
+    last step, from the second."""
+    n, a, k_int = loop_cfg.num_envs, loop_cfg.action_dim, loop_cfg.update_interval
+    out = []
+    for c in range(0, loop_cfg.rollout_steps, k_int):
+        (k_act_all, k_sample_update, _), key = rank_keys(key, rank, 3)
+        for j, k_act in enumerate(jax.random.split(k_act_all, k_int)):
+            t = c + j
+            step = dataclasses.replace(chain.step(env_keys[t]),
+                                       n_act=to_torch(jax.random.normal(k_act, (n, a))))
+            samples = []
+            if j == k_int - 1 and sizes[t] >= sac_cfg.learning_starts:
+                samples = update_event_draws(k_sample_update, sizes[t], sac_cfg, loop_cfg,
+                                             demo_size)
+            out.append(IterDraws(step=step, samples=samples))
     return out
 
 

@@ -188,9 +188,3 @@ def test_act_fn_constant_actions_reach_the_replay():
                                atol=0.0, rtol=0.0)
     assert seen == [((8, OBS), None)] * 8
 
-
-def test_act_fn_leaves_hoisting_unported():
-    with pytest.raises(NotImplementedError, match="hoist_bookkeeping"):
-        t_loop.make_train_iteration(
-            SAC_SMALL, dataclasses.replace(LOOP_SMALL, hoist_bookkeeping=True),
-            act_fn=lambda *a: None)

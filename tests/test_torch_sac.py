@@ -273,8 +273,6 @@ def test_update_draws_from_generator_and_views():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        t_sac.SACConfig(compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="lr_schedule"):
         t_sac.SACConfig(lr_schedule="step")
     cfg = t_sac.SACConfig(hidden_dims=(8, 8), batch_size=BATCH)

@@ -213,8 +213,6 @@ def test_iteration_options():
     tp = env_params_from_numpy(JAX_PARAMS)
     cfg = t_sac.SACConfig(hidden_dims=(8, 8), batch_size=8, buffer_size=64, learning_starts=8)
     base = t_loop.TrainLoopConfig(num_envs=8, rollout_steps=2)
-    with pytest.raises(NotImplementedError, match="hoist_bookkeeping"):
-        t_loop.make_train_iteration(cfg, dataclasses.replace(base, hoist_bookkeeping=True))
     with pytest.raises(ValueError, match="axis_name"):
         t_loop.make_train_iteration(cfg, base, axis_name="model")
     with pytest.raises(ValueError, match="multiple"):

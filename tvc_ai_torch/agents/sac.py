@@ -45,13 +45,18 @@ from tvc_ai_torch.parallel.mesh import sum_grads_
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class SACConfig:
     """The reference's ``SACConfig``, field for field, less ``action_noise``
     and ``curriculum_learning``, which the reference never reads.
     ``architecture="transformer"`` gives the actor a ``TransformerActor``
-    (any other value the MLP, as in the reference). Not ported, raising
-    ``NotImplementedError``: ``compute_dtype="bfloat16"``."""
+    (any other value the MLP, as in the reference). ``compute_dtype`` is
+    the hidden stacks' compute dtype, ``"float32"`` or ``"bfloat16"``
+    (``COMPUTE_DTYPES``; another name raises ``ValueError``): the parameters,
+    the heads, the actions, the losses and the metrics stay float32."""
 
     hidden_dims: tuple[int, ...] = (256, 256)
     lr_actor: float = 3e-4
@@ -85,10 +90,9 @@ class SACConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_dims", tuple(self.hidden_dims))
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"SACConfig.compute_dtype={self.compute_dtype!r} is not ported"
-            )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}; "
+                             f"one of {sorted(COMPUTE_DTYPES)}")
         if self.lr_schedule not in optim.SCHEDULES:
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
 
@@ -147,12 +151,15 @@ def make_actor(
     """The actor ``cfg.architecture`` names. The transformer takes only
     ``d_model``, ``num_layers`` and ``num_heads`` from the config, as the
     reference's ``make_networks`` does: its feed-forward width (512) and
-    head widths (512, 512) are ``TransformerActor``'s defaults."""
+    head widths (512, 512) are ``TransformerActor``'s defaults, and it
+    computes in float32 whatever ``compute_dtype`` says, as the reference's
+    does; the MLP computes its hidden stack in ``compute_dtype``."""
     if cfg.architecture == "transformer":
         return TransformerActor(obs_dim, action_dim, d_model=cfg.transformer_d_model,
                                 num_heads=cfg.transformer_heads,
                                 num_layers=cfg.transformer_layers, device=device, seed=seed)
-    return GaussianActor(obs_dim, action_dim, cfg.hidden_dims, device=device, seed=seed)
+    return GaussianActor(obs_dim, action_dim, cfg.hidden_dims, device=device, seed=seed,
+                         dtype=COMPUTE_DTYPES[cfg.compute_dtype])
 
 
 def frozen_copy(module: torch.nn.Module) -> torch.nn.Module:
@@ -167,12 +174,14 @@ def init(
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
 ) -> SACState:
-    """Seeded networks (initialized on the CPU, so the same on any device),
-    the target critic a copy of the critic, log α = log(cfg.alpha), zeroed
-    optimizer states."""
+    """Seeded networks (initialized on the CPU, so the same on any device;
+    the critic computes its hidden stacks in ``cfg.compute_dtype`` with
+    either actor), the target critic a copy of the critic, log α =
+    log(cfg.alpha), zeroed optimizer states."""
     dev = resolve_device(device)
     actor = make_actor(obs_dim, action_dim, cfg, dev, seed)
-    critic = TwinQ(obs_dim, action_dim, cfg.hidden_dims, device=dev, seed=seed + 1)
+    critic = TwinQ(obs_dim, action_dim, cfg.hidden_dims, device=dev, seed=seed + 1,
+                   dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     log_alpha = torch.log(torch.tensor(cfg.alpha, dtype=torch.float32)).to(dev)
     return SACState(
         actor=actor,

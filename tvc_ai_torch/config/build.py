@@ -8,9 +8,12 @@ reference keeps as a Python float). ``build_sac_config`` and
 ``build_loop_config`` give ``agents.sac.SACConfig`` and
 ``training.loop.TrainLoopConfig``.
 
-An option the port cannot honour raises ``NotImplementedError`` here, when
-the config is built, never later and never silently: bfloat16
-(``SACConfig``).
+``algorithms.sac.compute_dtype`` goes into ``SACConfig`` as it is:
+``"bfloat16"`` runs the SAC hidden stacks in bfloat16 (the solo trainer,
+the ensemble's SAC member, the population, the tuner, ``SACAgent`` and
+data parallel all build through ``agents.sac``), and another name than
+``"float32"`` or ``"bfloat16"`` raises ``ValueError`` when the config is
+built.
 """
 
 from __future__ import annotations

@@ -10,6 +10,15 @@ zero bias, from a seeded CPU generator. Layer names match the flax
 modules' (``hidden_0``, …, ``mean_head``, ``log_std_head``,
 ``action_head``, ``q_head``, ``v_head``) so the ``convert`` functions map
 them one to one.
+
+``dtype`` is the compute dtype of the hidden stack, as in the reference:
+``torch.float32`` (default) or ``torch.bfloat16``. The parameters stay
+float32 ``nn.Linear``s either way (so ``convert``, checkpoints and Adam do not
+change). In bfloat16 a hidden layer casts its input, weight and bias to
+bfloat16, takes ``x @ Wᵀ`` in bfloat16 and then adds the bias as a separate
+bfloat16 op: flax's ``Dense`` rounds twice (after the product and after the
+bias), where a fused ``addmm`` would round once. The heads cast their input
+back to float32 and compute in float32, as the reference's do.
 """
 
 from __future__ import annotations
@@ -35,18 +44,31 @@ def _dense(in_features: int, out_features: int, generator: torch.Generator) -> n
 
 
 def _add_hidden(module: nn.Module, width: int, hidden_dims: Sequence[int],
-                generator: torch.Generator) -> int:
-    """Add ``hidden_0``, … to ``module``; returns the last width."""
-    for i, h in enumerate(hidden_dims):
+                generator: torch.Generator, dtype: torch.dtype) -> int:
+    """Add ``hidden_0``, … to ``module`` and set its ``hidden_dims`` and
+    compute ``dtype``; returns the last width."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is neither torch.float32 nor torch.bfloat16")
+    module.hidden_dims = tuple(hidden_dims)
+    module.dtype = dtype
+    for i, h in enumerate(module.hidden_dims):
         module.add_module(f"hidden_{i}", _dense(width, h, generator))
         width = h
     return width
 
 
+def _hidden(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return layer(x)
+    y = torch.matmul(x.to(dtype), layer.weight.to(dtype).T)
+    return y + layer.bias.to(dtype)
+
+
 def _relu_stack(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The hidden stack in ``module.dtype``; the output is float32 for the heads."""
     for i in range(len(module.hidden_dims)):
-        x = torch.relu(getattr(module, f"hidden_{i}")(x))
-    return x
+        x = torch.relu(_hidden(getattr(module, f"hidden_{i}"), x, module.dtype))
+    return x.float()
 
 
 class GaussianActor(nn.Module):
@@ -60,12 +82,12 @@ class GaussianActor(nn.Module):
         hidden_dims: Sequence[int] = (256, 256),
         device: str | torch.device = DEFAULT_DEVICE,
         seed: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)  # init on the CPU: same weights anywhere
-        self.hidden_dims = tuple(hidden_dims)
-        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
+        width = _add_hidden(self, obs_dim, hidden_dims, gen, dtype)
         self.mean_head = _dense(width, action_dim, gen)
         self.log_std_head = _dense(width, action_dim, gen)
         self.to(dev)
@@ -85,12 +107,12 @@ class DeterministicActor(nn.Module):
         hidden_dims: Sequence[int] = (256, 256),
         device: str | torch.device = DEFAULT_DEVICE,
         seed: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        self.hidden_dims = tuple(hidden_dims)
-        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
+        width = _add_hidden(self, obs_dim, hidden_dims, gen, dtype)
         self.action_head = _dense(width, action_dim, gen)
         self.to(dev)
 
@@ -102,10 +124,9 @@ class QNetwork(nn.Module):
     """(obs (N, obs_dim), action (N, action_dim)) → Q (N,)."""
 
     def __init__(self, obs_dim: int, action_dim: int, hidden_dims: Sequence[int],
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.hidden_dims = tuple(hidden_dims)
-        width = _add_hidden(self, obs_dim + action_dim, self.hidden_dims, generator)
+        width = _add_hidden(self, obs_dim + action_dim, hidden_dims, generator, dtype)
         self.q_head = _dense(width, 1, generator)
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -123,12 +144,13 @@ class TwinQ(nn.Module):
         hidden_dims: Sequence[int] = (256, 256),
         device: str | torch.device = DEFAULT_DEVICE,
         seed: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        self.q1 = QNetwork(obs_dim, action_dim, hidden_dims, gen)
-        self.q2 = QNetwork(obs_dim, action_dim, hidden_dims, gen)
+        self.q1 = QNetwork(obs_dim, action_dim, hidden_dims, gen, dtype)
+        self.q2 = QNetwork(obs_dim, action_dim, hidden_dims, gen, dtype)
         self.to(dev)
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -144,12 +166,12 @@ class ValueNetwork(nn.Module):
         hidden_dims: Sequence[int] = (256, 256),
         device: str | torch.device = DEFAULT_DEVICE,
         seed: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        self.hidden_dims = tuple(hidden_dims)
-        width = _add_hidden(self, obs_dim, self.hidden_dims, gen)
+        width = _add_hidden(self, obs_dim, hidden_dims, gen, dtype)
         self.v_head = _dense(width, 1, gen)
         self.to(dev)
 

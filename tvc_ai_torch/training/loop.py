@@ -40,6 +40,19 @@ The extensions, each in the reference's place in the step:
 
 ICM, RND and goals run in the sim-only steps of ``update_interval > 1`` too.
 
+``hoist_bookkeeping=True`` (the reference's opt-in chunk path; it needs
+``update_interval`` K > 1, none of the three extensions, and a
+``buffer_size`` that is a multiple of K·N, or it raises the reference's
+``ValueError``): each chunk steps K lean sim steps with the agent fixed
+(act, safety layer, K1, history window), writes their K·N replay rows in one
+time-major block, runs one update event, does the episode accounting once,
+vectorised over K (a segmented cumulative sum: ``cummax`` of the last done
+before each step), and writes the finished-episode ring once over the K·N
+flat entries with the same last-``episode_ring_size`` rule. It takes the
+same ``IterDraws`` as the per-step cadence (each step's ``StepDraws``, the
+chunk's ``SampleDraws`` on its last step) and computes the same iteration:
+only the cumulative sums reorder float adds.
+
 Data parallel (``axis_name``, ``parallel.mesh``): every learner's gradients
 are all-reduced over the ranks (SAC's three, the ICM's, RND's with its
 normalizer's batch statistics averaged, the high level's with its mean
@@ -49,8 +62,8 @@ all-reduce (the update means where the step learned, ``reward_mean`` and
 rank's ``IterDraws``). ``summarize`` then reports the global totals and
 ``drain_episodes`` gathers every rank's ring.
 
-Not ported, raising ``NotImplementedError``: ``hoist_bookkeeping=True`` and
-``use_pallas_physics=False`` on CUDA.
+Refused by design, raising ``NotImplementedError``: ``use_pallas_physics=False``
+on CUDA, which would route the default physics around K1.
 """
 
 from __future__ import annotations
@@ -172,7 +185,8 @@ class SampleDraws:
 @dataclasses.dataclass
 class IterDraws:
     """One step's draws: the env step's and one ``SampleDraws`` per update
-    (read only where the step learns)."""
+    (read only where the step learns: with ``update_interval`` K > 1, hoisted
+    or not, the last step of each chunk of K)."""
 
     step: StepDraws = dataclasses.field(default_factory=StepDraws)
     samples: Sequence[SampleDraws] = ()
@@ -193,11 +207,7 @@ def augment_with_goal(obs: torch.Tensor, goal: torch.Tensor, loop_cfg: TrainLoop
         [obs, hier_mod.one_hot(goal, loop_cfg.hierarchical.num_goals, obs.dtype)], dim=-1)
 
 
-def _check_supported(loop_cfg: TrainLoopConfig, axis_name: str | None) -> None:
-    if loop_cfg.hoist_bookkeeping:
-        raise NotImplementedError(
-            "TrainLoopConfig.hoist_bookkeeping is not ported; it waits for a later slice "
-            "(the reference's hoisted path, default off)")
+def _check_axis(axis_name: str | None) -> None:
     if axis_name not in (None, DATA_AXIS):
         raise ValueError(f"unknown axis_name {axis_name!r}; the port has one axis, {DATA_AXIS!r}")
 
@@ -311,15 +321,17 @@ def make_train_iteration(
     averaged over all steps, the zeros of steps that did not learn included.
     With K > 1 each chunk is K − 1 sim-only steps and one learning step; the
     update metrics come from the learning step alone, ``reward_mean`` and
-    ``done_frac`` average the whole chunk. ``metrics`` holds 0-dim device
-    tensors. ``axis_name`` (``parallel.mesh.DATA_AXIS``) runs the iteration
-    as one rank of a data-parallel group.
+    ``done_frac`` average the whole chunk. ``hoist_bookkeeping=True`` runs
+    each chunk as one hoisted chunk (the module docstring) and sets
+    ``train_iteration.hoisted``. ``metrics`` holds 0-dim device tensors.
+    ``axis_name`` (``parallel.mesh.DATA_AXIS``) runs the iteration as one
+    rank of a data-parallel group.
 
     ``act_fn(agent, policy_input, n_act, generator) -> actions`` replaces the
     rollout's act path (default: ``sac.select_action`` on the agent's actor
     with the step's exploration noise ``n_act``, None when not drawn yet).
     """
-    _check_supported(loop_cfg, axis_name)
+    _check_axis(axis_name)
     if act_fn is None:
         def act_fn(agent, policy_input, n_act, generator):
             return sac.select_action(agent.actor, policy_input, n_act, generator=generator)
@@ -333,6 +345,19 @@ def make_train_iteration(
     n_demo = (
         int(round(batch_size * loop_cfg.demo_fraction)) if loop_cfg.demo_fraction > 0 else 0
     )
+    hoisted = bool(loop_cfg.hoist_bookkeeping)
+    if hoisted and not (
+        k_int > 1
+        and not loop_cfg.use_hierarchical
+        and not loop_cfg.use_curiosity
+        and not loop_cfg.use_rnd
+        and sac_cfg.buffer_size % (k_int * loop_cfg.num_envs) == 0
+    ):
+        raise ValueError(
+            "hoist_bookkeeping=True requires update_interval>1, plain "
+            "SAC features, and buffer_size divisible by "
+            "update_interval*num_envs"
+        )
     history, obs_dim = loop_cfg.history_len, loop_cfg.obs_dim
     ring_size = loop_cfg.episode_ring_size
     use_hier = loop_cfg.use_hierarchical
@@ -356,6 +381,17 @@ def make_train_iteration(
         return rocket_env.batched_step_autoreset(
             states, actions, env_params, generator=generator, n_imu=d.n_imu,
             reset_draws=d.reset, u_drop=d.u_drop)
+
+    def next_window(window, out, next_obs, done):
+        """(window, true next policy obs, next policy obs): with history,
+        shift the true next obs into the window; on done, refill the whole
+        window with the fresh episode's first obs."""
+        if history <= 1:
+            return window, out.obs, next_obs
+        shifted = torch.cat([window[:, 1:], out.obs[:, None, :]], dim=1)
+        fresh = next_obs[:, None, :].expand(-1, history, -1)
+        window = torch.where(done[:, None, None], fresh, shifted)
+        return window, shifted.reshape(shifted.shape[0], -1), window.reshape(window.shape[0], -1)
 
     def learn(agent, buffer, demo_buffer, samples, generator):
         """``updates_per_step`` updates, their metrics averaged."""
@@ -398,18 +434,9 @@ def make_train_iteration(
             actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)
         env_states, out, next_obs = batched_step(carry.env_states, actions, env_params, sd, gen)
 
-        # --- history window: shift in the true next obs; on done, refill
-        # the whole window with the fresh episode's first obs
-        obs_window = carry.obs_window
         done = out.terminated | out.truncated
-        if history > 1:
-            shifted = torch.cat([carry.obs_window[:, 1:], out.obs[:, None, :]], dim=1)
-            fresh = next_obs[:, None, :].expand(-1, history, -1)
-            obs_window = torch.where(done[:, None, None], fresh, shifted)
-            stacked_next_true = shifted.reshape(shifted.shape[0], -1)
-            stacked_next_policy = obs_window.reshape(obs_window.shape[0], -1)
-        else:
-            stacked_next_true, stacked_next_policy = out.obs, next_obs
+        obs_window, stacked_next_true, stacked_next_policy = next_window(
+            carry.obs_window, out, next_obs, done)
 
         # --- intrinsic rewards; the ICM trains every step, from the
         # parameters that gave this step's reward
@@ -503,6 +530,97 @@ def make_train_iteration(
                 if learned or k in ("reward_mean", "done_frac")], axis_name)
         return new_carry, step_metrics
 
+    def hoisted_chunk(carry: TrainCarry, env_params: EnvParams, ds: Sequence[IterDraws],
+                      zero: torch.Tensor):
+        """K sim steps with the agent fixed, then the chunk's replay write,
+        update event, episode accounting and ring write, each once."""
+        gen, agent = carry.generator, carry.agent
+        env_states, obs, window = carry.env_states, carry.obs, carry.obs_window
+        n, k = obs.shape[0], k_int
+        ys = []
+        for d in ds:
+            sd = d.step
+            actions = act_fn(agent, obs, sd.n_act, gen)
+            if loop_cfg.use_safety_layer:
+                cur_frame = obs[:, -obs_dim:] if history > 1 else obs
+                actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)
+            env_states, out, next_obs = batched_step(env_states, actions, env_params, sd, gen)
+            window, next_true, next_policy = next_window(
+                window, out, next_obs, out.terminated | out.truncated)
+            ys.append((obs, actions, out.reward, next_true, out.terminated, out.truncated,
+                       out.mission_success))
+            obs = next_policy
+        s_obs, s_act, s_rew, s_next, s_term, s_trunc, s_succ = zip(*ys)
+        s_rew, s_term = torch.stack(s_rew), torch.stack(s_term)
+
+        # --- replay: one time-major block of K·N rows, the rows K per-step
+        # writes would make, in their order
+        buffer = replay_mod.add_batch(carry.buffer, {
+            "obs": torch.cat(s_obs),
+            "action": torch.cat(s_act),
+            "reward": s_rew.reshape(-1),
+            "next_obs": torch.cat(s_next),
+            "done": s_term.reshape(-1).to(torch.float32),
+        })
+
+        # --- one update event per chunk
+        learned = buffer.size >= sac_cfg.learning_starts
+        if learned:
+            agent, upd_metrics = learn(agent, buffer, carry.demo_buffer, ds[-1].samples, gen)
+        else:
+            upd_metrics = no_update_metrics(agent, zero)
+
+        # --- episode accounting over the chunk: the running return
+        # restarts after each done, a segmented cumulative sum from the
+        # index of the last done strictly before each step (-1: none)
+        i32 = torch.int32
+        done_kn = s_term | torch.stack(s_trunc)
+        succ_kn = done_kn & torch.stack(s_succ)
+        t_idx = torch.arange(k, dtype=i32, device=obs.device)[:, None]
+        done_t = torch.where(done_kn, t_idx, -1)
+        ldb = torch.cat([torch.full((1, n), -1, dtype=i32, device=obs.device),
+                         torch.cummax(done_t, dim=0).values[:-1]])
+        fresh_seg = ldb < 0   # the episode began before the chunk
+        cum_rew = torch.cumsum(s_rew, dim=0)
+        cum_at_ldb = torch.gather(cum_rew, 0, ldb.clamp(min=0).to(torch.int64))
+        # the running return and length including step t, before a reset at t
+        ring_ret = (torch.where(fresh_seg, carry.ep_return[None, :], 0.0) + cum_rew
+                    - torch.where(fresh_seg, 0.0, cum_at_ldb))
+        ring_len = (torch.where(fresh_seg, carry.ep_length[None, :], 0)
+                    + (t_idx - ldb)).to(torch.float32)
+
+        # --- the finished-episode ring: one flat time-major write
+        done_flat = done_kn.reshape(-1)
+        slot, total = ring_slots(done_flat, carry.ep_ring_ptr[0], ring_size)
+        seq = (carry.env_steps[0] + t_idx).expand(k, n).reshape(-1)
+        new_carry = dataclasses.replace(
+            carry,
+            env_states=env_states,
+            obs=obs,
+            agent=agent,
+            buffer=buffer,
+            obs_window=window,
+            env_steps=carry.env_steps + k,
+            episodes=carry.episodes + done_kn.sum(0, dtype=i32),
+            successes=carry.successes + succ_kn.sum(0, dtype=i32),
+            ep_return=torch.where(done_kn[-1], 0.0, ring_ret[-1]),
+            ep_length=torch.where(done_kn[-1], 0, ring_len[-1].to(i32)),
+            return_sum=carry.return_sum + torch.where(done_kn, ring_ret, 0.0).sum(0),
+            length_sum=carry.length_sum + torch.where(done_kn, ring_len, 0.0).sum(0),
+            ep_ring_return=ring_set(carry.ep_ring_return, slot, ring_ret.reshape(-1)),
+            ep_ring_length=ring_set(carry.ep_ring_length, slot, ring_len.reshape(-1)),
+            ep_ring_success=ring_set(carry.ep_ring_success, slot, succ_kn.reshape(-1)),
+            ep_ring_seq=ring_set(carry.ep_ring_seq, slot, seq),
+            ep_ring_ptr=torch.remainder(carry.ep_ring_ptr + total, ring_size).to(i32),
+            env_steps_host=carry.env_steps_host + k,
+        )
+        metrics = dict(upd_metrics, reward_mean=s_rew.mean(),
+                       done_frac=done_kn.to(torch.float32).mean())
+        # the learning step's all-reduce of the per-step path
+        pmean_([metrics[name] for name in metrics
+                if learned or name in ("reward_mean", "done_frac")], axis_name)
+        return new_carry, metrics
+
     def mean_over(rows: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
         return {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
 
@@ -515,7 +633,12 @@ def make_train_iteration(
         empty = IterDraws()
         iter_start = carry.env_steps_host
         rows = []
-        if k_int <= 1:
+        if hoisted:
+            for c in range(0, steps, k_int):
+                ds = draws[c:c + k_int] if draws is not None else [empty] * k_int
+                carry, m = hoisted_chunk(carry, env_params, ds, zero)
+                rows.append(m)
+        elif k_int <= 1:
             for t in range(steps):
                 carry, m = env_and_learn_step(
                     carry, env_params, draws[t] if draws is not None else empty, True, zero)
@@ -544,6 +667,7 @@ def make_train_iteration(
             metrics.update(hier_metrics)
         return carry, metrics
 
+    train_iteration.hoisted = hoisted
     return train_iteration
 
 
