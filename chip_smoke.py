@@ -220,6 +220,18 @@ draws with the updates gated off (1e-6), then times the default
 configuration with ``update_interval`` 4 and a 999,424-row replay, per-step
 cadence and hoisted in turns, and profiles one chunk of each.
 
+Phase [20] reads the JAX package's flax msgpack files
+(``tests/fixtures/jax_msgpack/``, written by the JAX package) through the
+port's entry points: the default-width legacy ``SACAgent.save`` file
+(``SACAgent.load`` and ``eval.evaluate.load_agent_state``), a DAgger student
+(``load_agent_state``), a θ-student (``policy_breakdown.load_policy``) and an
+ensemble checkpoint (``MultiAlgorithmAgent.load_checkpoint``), holds each
+one's outputs on 64 fixed observations against the JAX package's
+(``expected.npz``) at 1e-5 and prints the decoder's host ms per MB; then it
+runs the three suites (``run_all_suites`` at its defaults) on the legacy
+policy and a default-config ``Trainer`` warm-started from the student for
+one 2-step iteration, both through K1.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
@@ -3942,6 +3954,135 @@ def hoisted_full_width(dev, env_params: EnvParams) -> dict:
     return {"hoisted_default": launches}
 
 
+# [20] the JAX package's msgpack fixtures (tests/test_torch_jax_artifacts.py
+# writes them; manifest.json names their widths)
+JAX_FIXTURES = ROOT / "tests" / "fixtures" / "jax_msgpack"
+JAX_FIXTURE_ATOL = 1e-5          # the card's outputs against the JAX package's (TF32 off)
+JAX_FT_STEPS = 2                 # [20] the warm-started trainer's rollout_steps, one iteration
+
+
+def jax_artifacts_on_card(scratch: Path, dev) -> dict:
+    """[20]: the JAX package's flax msgpack files through the port's entry
+    points on the card: the default-width legacy ``SACAgent.save`` file
+    (``SACAgent.load``, ``load_agent_state``), a DAgger student
+    (``load_agent_state``), a θ-student (``policy_breakdown.load_policy``)
+    and an ensemble checkpoint (``MultiAlgorithmAgent.load_checkpoint``),
+    each one's outputs on 64 fixed observations held against the JAX
+    package's (``expected.npz``) at ``JAX_FIXTURE_ATOL``; the decoder's host
+    ms per MB; then the three suites at their defaults on the legacy policy
+    and a default-config ``Trainer`` warm-started from the student for one
+    ``JAX_FT_STEPS``-step iteration, both through K1. Returns their K1
+    launches."""
+    from tvc_ai_torch import policy_breakdown
+    from tvc_ai_torch.agents.legacy import SACAgent
+    from tvc_ai_torch.utils import flax_msgpack
+
+    manifest = json.loads((JAX_FIXTURES / "manifest.json").read_text())
+    with np.load(JAX_FIXTURES / "expected.npz") as npz:
+        expected = dict(npz)
+    files = [JAX_FIXTURES / spec["file"] for spec in manifest.values()]
+    t0 = time.perf_counter()
+    for path in files:
+        flax_msgpack.load(path)
+    decode_s = time.perf_counter() - t0
+    mb = sum(p.stat().st_size for p in files) / 2**20
+    log(f"[20] decoded {len(files)} flax msgpack files, {mb:.3f} MB, in {decode_s * 1e3:.2f} ms "
+        f"of host = {decode_s * 1e3 / mb:.3f} ms per MB")
+
+    def on_card(name: str) -> torch.Tensor:
+        return torch.from_numpy(expected[name]).to(dev)
+
+    def held(name: str, got: torch.Tensor, what: str) -> float:
+        err = float((got.float().cpu() - torch.from_numpy(expected[name])).abs().max())
+        assert err <= JAX_FIXTURE_ATOL, (what, err)
+        log(f"[20] {what}: max |card - JAX| {err:.3e} (atol {JAX_FIXTURE_ATOL}): ok")
+        return err
+
+    def actions(actor, name: str) -> torch.Tensor:
+        return sac.select_action(actor, on_card(name), deterministic=True)
+
+    errs = []
+    spec = manifest["legacy"]
+    cfg_legacy = sac.SACConfig(tuple(spec["hidden_dims"]))
+    path = JAX_FIXTURES / spec["file"]
+    agent = SACAgent(spec["obs_dim"], 2, cfg_legacy, device=dev)
+    agent.load(path)
+    assert agent.total_steps == spec["total_steps"], agent.total_steps
+    errs.append(held("legacy_actions", actions(agent.actor, "legacy_obs"),
+                     f"legacy SACAgent.save ({spec['hidden_dims']}) through SACAgent.load"))
+    legacy_state = load_agent_state(path, spec["obs_dim"], 2, cfg_legacy, dev)
+    errs.append(held("legacy_actions", actions(legacy_state.actor, "legacy_obs"),
+                     "the same file through load_agent_state"))
+    spec = manifest["student"]
+    student_path = JAX_FIXTURES / spec["file"]
+    student = load_agent_state(student_path, spec["obs_dim"] * spec["history_len"], 2,
+                               sac.SACConfig(tuple(spec["hidden_dims"])), dev)
+    errs.append(held("student_actions", actions(student.actor, "student_obs"),
+                     f"DAgger student ({spec['hidden_dims']}) through load_agent_state"))
+    spec = manifest["theta"]
+    suite = policy_breakdown.suite_params("robustness", False, "ema")
+    _, net = policy_breakdown.load_policy(JAX_FIXTURES / spec["file"], suite,
+                                          spec["history_len"], [], dev)
+    with torch.no_grad():
+        errs.append(held("theta_out", net(on_card("theta_obs")),
+                         f"θ-student ({spec['hidden_dims']}) through policy_breakdown"))
+    spec = manifest["ensemble"]
+    widths = tuple(spec["hidden_dims"])
+    ens_cfg = ensemble.EnsembleConfig(sac=sac.SACConfig(widths), td3=td3.TD3Config(widths),
+                                      ppo=ppo.PPOConfig(widths))
+    ens = ensemble.MultiAlgorithmAgent(config=ens_cfg, device=dev)
+    ens.attach_carry(ensemble.init_carry(EnvParams(), ens_cfg, 4, device=dev, seed=SEED))
+    ens.load_checkpoint(JAX_FIXTURES / spec["file"])
+    assert {a: list(h) for a, h in ens.performance_history.items()} == \
+        spec["performance_history"]
+    assert ens.algorithm_weights == spec["algorithm_weights"]
+    for algo in ("sac", "td3", "ppo"):
+        got, _ = ens.get_action(expected["ensemble_obs"], deterministic=True, algorithm=algo)
+        errs.append(held(f"ensemble_{algo}", torch.from_numpy(got),
+                         f"ensemble {algo} member ({spec['hidden_dims']}) through "
+                         "load_checkpoint (windows and weights equal)"))
+
+    launches = {}
+    out_dir = scratch / "jax_suites"
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = run_all_suites(legacy_state, cfg_legacy, out_dir, seed=SEED, device=dev)
+    wall = time.perf_counter() - t0
+    launches["jax_suites"] = k1.step_kernel.launches
+    assert launches["jax_suites"] == sum(r.steps for r in results.values()), launches
+    for name, r in results.items():
+        assert all(math.isfinite(v) for v in r.metrics.values()), (name, r.metrics)
+    log(f"[20] run_all_suites on the JAX legacy policy (256x256): "
+        + ", ".join(f"{name} {r.stats.returns.shape[0]} episodes x {r.steps} steps, success "
+                    f"{r.metrics['eval_success_rate']:.3f}" for name, r in results.items())
+        + f"; {wall:.3f} s, K1 launches {launches['jax_suites']} == steps run")
+
+    spec = manifest["student"]
+    cfg = load_config(None, [f"algorithms.sac.hidden_dims=[{widths[0]},{widths[1]}]",
+                             f"training.rollout_steps={JAX_FT_STEPS}",
+                             f"network.history_len={spec['history_len']}",
+                             "logging.tensorboard=false",
+                             f"training.warm_start_actor={student_path}"])
+    cfg.training.total_timesteps = cfg.training.num_envs * JAX_FT_STEPS
+    tr = Trainer(cfg, output_dir=scratch / "jax_student_ft", device=dev)
+    errs.append(held("student_actions", actions(tr.carry.agent.actor, "student_obs"),
+                     "Trainer actor warm-started from the JAX student"))
+    evals: list = []
+    counting_evals(tr, evals)
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches["jax_student_ft"] = k1.step_kernel.launches
+    assert result["iterations"] == 1 and launches["jax_student_ft"] == (
+        JAX_FT_STEPS + sum(k for k, _, _ in evals)), (result["iterations"], launches, evals)
+    train_s = result["stage_timing"]["train_iteration"]["total_sec"]
+    log(f"[20] default-config Trainer ({cfg.training.num_envs} envs x {JAX_FT_STEPS} steps) "
+        f"warm-started from the JAX student: {train_s:.4f} s of training, eval success "
+        f"{result['eval_success_rate']:.3f}; K1 launches {launches['jax_student_ft']}")
+    tr.logger.close()
+    log(f"[20] every fixture held; max |card - JAX| {max(errs):.3e}")
+    return launches
+
+
 def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
     """[9a]: K1 against its plain version below one block, at N = 1 (the
     single-env path of [17], in contact too), 2, 20 and 50, each N's time
@@ -4574,6 +4715,12 @@ def main() -> int:
         phase("[19b]")
         ensemble_launches.update(hoisted_card_vs_cpu(dev, short))
         ensemble_launches.update(hoisted_full_width(dev, env_params))
+
+        # ---- 20. the JAX package's msgpack artifacts on the card: each
+        # fixture held against the JAX package's outputs, the suites on its
+        # default-width policy, a trainer warm-started from its student
+        phase("[20]")
+        ensemble_launches.update(jax_artifacts_on_card(scratch, dev))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

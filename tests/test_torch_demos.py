@@ -228,7 +228,8 @@ def test_demo_seeding_refused_where_the_reference_refuses(tmp_path):
     with pytest.raises(ValueError, match="single-device"):
         check_supported(warm, 2)
     check_supported(warm, 1)   # ported: the Trainer reads the port's own student file
-    with pytest.raises(NotImplementedError, match="flax msgpack"):
+    # a flax msgpack file is read, and one that holds no SACState is refused
+    with pytest.raises(ValueError, match="no actor_params"):
         (tmp_path / "student.msgpack").write_bytes(b"\x81\xa5state\x80")
         Trainer(tiny_cfg(tmp_path, extra=[
             f"training.warm_start_actor={tmp_path / 'student.msgpack'}"]),

@@ -13,7 +13,8 @@
 - ``student.pt`` round-trips through ``eval.evaluate.load_agent_state``;
   ``training.warm_start_actor`` sets the actor (and the EMA actor) to the
   student bit for bit and leaves the critic fresh, raises ``ValueError`` on
-  a shape mismatch and ``NotImplementedError`` on a flax msgpack file;
+  a shape mismatch and on a flax msgpack file that holds no SACState (the
+  JAX package's students themselves are read: ``test_torch_jax_artifacts.py``);
   ``robust_student_ft_r5.yaml`` (the port's copy, only the student's path
   changed) builds as the JAX package's and trains warm-started at tiny
   sizes.
@@ -194,7 +195,7 @@ def test_warm_start_actor_refusals(tmp_path):
         Trainer(cfg, output_dir=tmp_path / "x", device="cpu")
     (tmp_path / "student.msgpack").write_bytes(b"\x81\xa5state\x80")
     cfg = tiny_cfg(tmp_path, extra=[f"training.warm_start_actor={tmp_path / 'student.msgpack'}"])
-    with pytest.raises(NotImplementedError, match="flax msgpack"):
+    with pytest.raises(ValueError, match="no actor_params"):
         Trainer(cfg, output_dir=tmp_path / "y", device="cpu")
 
 

@@ -255,10 +255,17 @@ def test_checkpoint_round_trip(tmp_path):
     assert loaded.algorithm_weights == saved.algorithm_weights
     # the env, obs and replay are not in the file: the loaded carry keeps its own
     assert not torch.equal(loaded.carry.obs, saved.carry.obs)
-    # the JAX package's msgpack is not read
+    # the JAX package's msgpack is read: its members act as the reference's
     ref = j_ens.MultiAlgorithmAgent(config=j_cfg)
     ref.attach_carry(jax.jit(lambda k: j_ens.init_carry(k, JAX_PARAMS, j_cfg, N))(
         jax.random.PRNGKey(0)))
+    ref.update_performance("td3", 4.0)
     ref.save_checkpoint(tmp_path / "ens.msgpack")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        loaded.load_checkpoint(tmp_path / "ens.msgpack")
+    loaded.load_checkpoint(tmp_path / "ens.msgpack")
+    obs = np.random.default_rng(3).normal(size=(8, 10)).astype(np.float32)
+    for algo in t_ens.ALGORITHMS:
+        np.testing.assert_allclose(
+            loaded.get_action(obs, deterministic=True, algorithm=algo)[0],
+            np.asarray(ref.get_action(obs, deterministic=True, algorithm=algo)[0]),
+            atol=1e-6, rtol=0, err_msg=algo)
+    assert loaded.carry.sac.step == 0 and list(loaded.performance_history["td3"]) == [4.0]

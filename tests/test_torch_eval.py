@@ -322,8 +322,10 @@ def test_load_agent_state(tmp_path):
         for a, b in zip(loaded.critic.parameters(), agent.critic.parameters()):
             assert torch.equal(a, b)
         assert torch.equal(loaded.log_alpha, agent.log_alpha)
+    # a flax msgpack file is read (tests/test_torch_jax_artifacts.py); an
+    # empty one holds no SACState and is refused
     (tmp_path / "agent.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="no actor_params"):
         t_evaluate.load_agent_state(tmp_path / "agent.msgpack", 10, 2, cfg, device="cpu")
     (tmp_path / "orbax" / "128" / "carry").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="orbax"):

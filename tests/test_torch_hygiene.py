@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax():
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tvc_ai_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'tvc_ai_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -68,7 +68,7 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
             *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES,
-            *SINGLE_ENV_MODULES, *REMNANT_MODULES} <= set(MODULES)
+            *SINGLE_ENV_MODULES, *REMNANT_MODULES, *ARTIFACT_MODULES} <= set(MODULES)
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -106,15 +106,21 @@ REMNANT_MODULES = ["tvc_ai_torch.tuning", "tvc_ai_torch.tuning.hpo", "tvc_ai_tor
                    *(f"tvc_ai_torch.{name}" for name in REMNANT_CLIS)]
 
 
+# the reader of the JAX package's flax msgpack files (it decodes them itself:
+# msgpack is as foreign to the card's host as flax)
+ARTIFACT_MODULES = ["tvc_ai_torch.utils.flax_msgpack"]
+
+
 @pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
-                         + DISTILL_MODULES + SINGLE_ENV_MODULES + REMNANT_MODULES)
+                         + DISTILL_MODULES + SINGLE_ENV_MODULES + REMNANT_MODULES
+                         + ARTIFACT_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
              if isinstance(node, ast.Import) for alias in node.names}
     roots |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module}
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "tvc_ai_tpu"}, (name, roots)
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "msgpack", "tvc_ai_tpu"}, (name, roots)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -124,7 +130,8 @@ def test_chip_smoke_imports_without_jax():
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "finally:\n"
-        "    bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tvc_ai_tpu')]\n"
+        "    bad = [m for m in sys.modules\n"
+        "           if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'tvc_ai_tpu')]\n"
         "    assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -169,7 +176,8 @@ ENTRY_POINTS = ["reset", "actor", "env_state_from_numpy", "sac_init", "replay_cr
                 "ensemble_trainer", "transformer_actor", "icm_init", "rnd_init", "high_init",
                 "sac_agent", "init_population", "safety_net", "load_agent_file",
                 "generate_demonstrations", "refine_per_draw",
-                "dagger_init_state", "cem_dagger_state", "theta_state"]
+                "dagger_init_state", "cem_dagger_state", "theta_state", "load_jax_student"]
+JAX_STUDENT = ROOT / "tests" / "fixtures" / "jax_msgpack" / "student.msgpack"
 SMALL_DAGGER = dagger.DaggerConfig(num_envs=2, rollout_steps=2, capacity=8, batch_size=4,
                                    train_steps=1)
 # a small trainer run (the overrides of tests/test_trainer.py::tiny_cfg)
@@ -235,6 +243,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "theta_state": lambda: theta_student.init_theta_state(
             theta_student.ThetaDaggerConfig(num_envs=2, rollout_steps=2, capacity=8,
                                             history_len=1, hidden_dims=(8,)), 10).data_theta,
+        "load_jax_student": lambda: load_agent_state(JAX_STUDENT, 10, 2,
+                                                     sac.SACConfig((32, 32))).log_alpha,
     }
 
     def agent_file():

@@ -136,14 +136,25 @@ def test_members_and_save_load_round_trip(tmp_path):
 
 
 def test_flax_msgpack_file_is_refused(tmp_path):
+    """The JAX package's ``SACAgent.save`` file is read whole (the bars of
+    ``tests/test_torch_jax_artifacts.py``); a cut one, or a file that is
+    neither a zip nor msgpack, is refused with ``ValueError``."""
     j_agent = j_legacy.SACAgent(OBS, ACT, j_sac.SACConfig(**CFG))
     path = tmp_path / "agent.msgpack"
     j_agent.save(path)
     agent = t_legacy.SACAgent(OBS, ACT, t_sac.SACConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        agent.load(path)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_agent_state(path, OBS, ACT, agent.config, device="cpu")
+    agent.load(path)
+    obs = next(_transitions(1, 7))[0]
+    np.testing.assert_allclose(agent.select_action(obs, deterministic=True),
+                               j_agent.select_action(obs, deterministic=True), **CLOSE)
+    assert not diff_states(load_agent_state(path, OBS, ACT, agent.config, device="cpu"),
+                           agent.state)
+    (tmp_path / "cut.msgpack").write_bytes(path.read_bytes()[:-9])
+    with pytest.raises(ValueError, match="truncated"):
+        agent.load(tmp_path / "cut.msgpack")
+    (tmp_path / "text.pt").write_text("not an agent")
+    with pytest.raises(ValueError, match="neither"):
+        load_agent_state(tmp_path / "text.pt", OBS, ACT, agent.config, device="cpu")
     torch.save({"state": {}}, tmp_path / "other.pt")
     with pytest.raises(ValueError, match="not a SACAgent.save payload"):
         agent.load(tmp_path / "other.pt")

@@ -34,7 +34,8 @@ performance windows, the selector (dynamic, best or voting, with the
 ``selection_epsilon`` floor drawn from ``random.Random(seed ^ 0x5E1EC7)``),
 the voting weights, ``get_action`` and the checkpoint (``torch.save`` of
 the members with their optimizer states and step counts, the windows and
-the weights).
+the weights; ``load_checkpoint`` also reads the JAX package's flax msgpack
+one).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from tvc_ai_torch.env.rocket_env import ResetDraws
 from tvc_ai_torch.env.types import ACTION_DIM, OBS_DIM, EnvParams, EnvState
 from tvc_ai_torch.parallel.mesh import pmean_
 from tvc_ai_torch.training.loop import SampleDraws, StepDraws
+from tvc_ai_torch.utils import flax_msgpack
 from tvc_ai_torch.utils.checkpoint import load_state, state_of
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
@@ -437,19 +439,39 @@ class MultiAlgorithmAgent:
 
     def load_checkpoint(self, path) -> None:
         """Restore the members (when a carry is attached), the windows and
-        the weights from ``save_checkpoint``'s file. A flax msgpack of the
-        JAX package raises ``NotImplementedError``."""
+        the weights from ``save_checkpoint``'s file, or from the JAX
+        package's (``ensemble_final.msgpack``: flax msgpack of the carry
+        without env states, obs and replay, the windows and the weights),
+        whose members are carried across by ``convert`` at the attached
+        carry's widths."""
         path = Path(path)
-        if not zipfile.is_zipfile(path):
-            raise NotImplementedError(
-                f"{path} is not a torch.save checkpoint (a flax msgpack of the JAX package?); "
-                "this package reads only its own ensemble checkpoints"
-            )
-        payload = torch.load(path, map_location=self.device, weights_only=True)
+        if flax_msgpack.is_flax_msgpack(path):
+            payload, members = flax_msgpack.load(path), self._members_from_flax
+        elif zipfile.is_zipfile(path):
+            payload = torch.load(path, map_location=self.device, weights_only=True)
+            members = lambda saved: {  # noqa: E731
+                m: load_state(getattr(self.carry, m), saved[m]) for m in ALGORITHMS}
+        else:
+            raise ValueError(f"{path}: neither an ensemble checkpoint of this package (a zip) "
+                             "nor a flax msgpack one of the JAX package")
         saved = payload.get("carry")
         if self.carry is not None and saved:
-            self.carry = dataclasses.replace(
-                self.carry, **{m: load_state(getattr(self.carry, m), saved[m]) for m in ALGORITHMS})
+            self.carry = dataclasses.replace(self.carry, **members(saved))
         for a, h in payload.get("performance_history", {}).items():
             self.performance_history[a] = deque(h, maxlen=self.config.performance_window)
         self.algorithm_weights.update(payload.get("algorithm_weights", {}))
+
+    def _members_from_flax(self, saved: dict) -> dict:
+        """The three members of a JAX ``EnsembleCarry`` in flax's state-dict
+        form, on the attached carry's device at its observation width."""
+        from tvc_ai_torch import convert
+
+        obs_dim, dev = self.carry.obs.shape[-1], self.carry.obs.device
+        return {
+            "sac": convert.sac_state_from_numpy(saved["sac"], self.config.sac, obs_dim,
+                                                ACTION_DIM, dev),
+            "td3": convert.td3_state_from_numpy(saved["td3"], self.config.td3, obs_dim,
+                                                ACTION_DIM, dev),
+            "ppo": convert.ppo_state_from_numpy(saved["ppo"], self.config.ppo, obs_dim,
+                                                ACTION_DIM, dev),
+        }

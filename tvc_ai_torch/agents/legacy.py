@@ -19,9 +19,9 @@ One ``torch.Generator`` stands in for the reference's key, which it splits
 on every ``select_action`` and ``train``; the draws may instead be given
 (``n_act``; ``sample_idx`` and ``update_draws``). ``save`` writes the
 port's own ``torch.save`` file, ``{"state", "obs_dim", "action_dim",
-"total_steps"}``; ``read_agent_file`` reads it back and refuses anything
-else (a flax msgpack file of the JAX package raises
-``NotImplementedError``).
+"total_steps"}``. ``read_agent_file`` reads it back, and reads the JAX
+package's flax msgpack agent files too: its ``SACAgent.save`` file and the
+DAgger students (``{"state": SACState}``), through ``utils.flax_msgpack``.
 """
 
 from __future__ import annotations
@@ -36,26 +36,63 @@ import torch
 from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.agents.sac import SACConfig
+from tvc_ai_torch.utils import flax_msgpack
 from tvc_ai_torch.utils.checkpoint import load_state, state_of
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["SACAgent", "SACConfig", "read_agent_file"]
+__all__ = ["SACAgent", "SACConfig", "fit_ema", "read_agent_file"]
 
 PAYLOAD_KEYS = {"state", "obs_dim", "action_dim", "total_steps"}
 
 
 def read_agent_file(path: str | Path, device: str | torch.device = "cpu") -> dict[str, Any]:
-    """The payload of a ``SACAgent.save`` file, its tensors on ``device``."""
+    """The payload of an agent file, ``{"state", "obs_dim", "action_dim",
+    "total_steps"}`` with ``state`` a ``SACState`` as ``state_of`` gives it,
+    its tensors on ``device``: this package's ``SACAgent.save`` file (a
+    ``torch.save`` zip), or a flax msgpack agent file of the JAX package
+    (``_flax_agent_payload``). Anything else raises ``ValueError``."""
     path = Path(path)
+    if flax_msgpack.is_flax_msgpack(path):
+        return _flax_agent_payload(path, device)
     if not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path}: not a file of this package's SACAgent.save (a flax msgpack agent file "
-            "of the JAX package is out of scope; this package reads its own files)")
+        raise ValueError(f"{path}: neither a SACAgent.save file of this package (a zip) nor "
+                         "a flax msgpack agent file of the JAX package")
     payload = torch.load(path, map_location=device, weights_only=True)
     if not isinstance(payload, dict) or set(payload) != PAYLOAD_KEYS:
         raise ValueError(f"{path}: not a SACAgent.save payload "
                          f"(keys {sorted(payload) if isinstance(payload, dict) else type(payload)})")
     return payload
+
+
+def _flax_agent_payload(path: Path, device: str | torch.device) -> dict[str, Any]:
+    """A flax msgpack agent file as ``read_agent_file``'s payload. Its
+    ``state`` (the whole file where it has none, as the reference's
+    ``load_agent_state`` reads it) becomes a ``SACState`` of the widths its
+    actor's kernels give; ``obs_dim`` and ``action_dim`` come from the file
+    where it carries them (the legacy ``SACAgent.save`` does, a DAgger student
+    does not) and must agree with the kernels; ``total_steps`` defaults to 0."""
+    from tvc_ai_torch.convert import actor_dims, sac_state_from_state_dict
+
+    raw = flax_msgpack.load(path)
+    tree = raw.get("state", raw) if isinstance(raw, dict) else None
+    if not isinstance(tree, dict) or "actor_params" not in tree:
+        raise ValueError(f"{path}: a flax msgpack file that holds no SACState (no actor_params)")
+    obs_dim, _, action_dim = actor_dims(tree["actor_params"])
+    for name, inferred in (("obs_dim", obs_dim), ("action_dim", action_dim)):
+        if int(raw.get(name, inferred)) != inferred:
+            raise ValueError(f"{path}: {name} {raw[name]} but the actor's kernels give {inferred}")
+    state = sac_state_from_state_dict(tree, resolve_device(device))
+    return {"state": state_of(state), "obs_dim": obs_dim, "action_dim": action_dim,
+            "total_steps": int(raw.get("total_steps", 0))}
+
+
+def fit_ema(template: sac_mod.SACState, state: dict[str, Any]) -> dict[str, Any]:
+    """``state`` (``read_agent_file``'s) without its EMA actor where
+    ``template``'s config keeps none: nothing reads it there (the reference
+    evaluates the live actor then, ``eval_actor_view``)."""
+    if template.ema_actor is None and state.get("ema_actor") is not None:
+        return {**state, "ema_actor": None}
+    return state
 
 
 class _BufferView:
@@ -173,9 +210,11 @@ class SACAgent:
         }, path)
 
     def load(self, path) -> None:
+        """Restore the state and ``total_steps`` from this package's file or
+        the JAX package's msgpack one (``read_agent_file``)."""
         payload = read_agent_file(path, self.device)
         self.load_state_dict(payload["state"])
         self.total_steps = int(payload["total_steps"])
 
     def load_state_dict(self, state_dict) -> None:
-        self.state = load_state(self.state, state_dict)
+        self.state = load_state(self.state, fit_ema(self.state, state_dict))

@@ -469,9 +469,10 @@ class TrainingConfig:
     early_stopping: EarlyStoppingConfig = field(default_factory=EarlyStoppingConfig)
     checkpointing: CheckpointConfig = field(default_factory=CheckpointConfig)
     demo_seeding: DemoSeedingConfig = field(default_factory=DemoSeedingConfig)
-    # warm-start the actor (and its EMA shadow) from a distilled-student
-    # msgpack (scripts/dagger_distill.py artifact: SACState with the
-    # student as actor). RL fine-tuning ON TOP of the distilled student —
+    # warm-start the actor (and its EMA shadow) from a distilled student:
+    # the port's student.pt or the JAX package's student.msgpack
+    # (scripts/dagger_distill.py artifact: SACState with the student as
+    # actor). RL fine-tuning ON TOP of the distilled student —
     # the student starts at the blind fixed-strategy bound (~3.9% strict on
     # the robustness suite, RESULTS r4) and RL adapts past it, instead of
     # spending most of the budget rediscovering ground balance. Critic and

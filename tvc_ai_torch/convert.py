@@ -7,6 +7,10 @@ The inputs are plain host data: nested dicts, tuples (or attribute objects)
 whose leaves are numpy arrays or anything ``numpy.asarray`` takes. Nothing
 here imports JAX, flax or optax; a caller holding JAX pytrees maps them to
 numpy first (``jax.tree.map(np.asarray, tree)`` keeps optax's named tuples).
+The learners' states are also taken in flax's state-dict form, as a flax
+msgpack file holds them (``utils.flax_msgpack``): a tuple there is a dict
+keyed "0".."n-1", a named tuple a dict of its fields, an absent EMA actor
+``None`` and ``step`` a 0-d array.
 """
 
 from __future__ import annotations
@@ -185,15 +189,24 @@ def _has(obj: Any, name: str) -> bool:
     return name in obj if isinstance(obj, Mapping) else hasattr(obj, name)
 
 
+def _children(tree: Any) -> tuple | None:
+    """The entries of a tuple or list, or of flax's state-dict form of one (a
+    dict keyed "0".."n-1"), in order; ``None`` for anything else."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree)
+    if isinstance(tree, Mapping) and set(tree) == {str(i) for i in range(len(tree))}:
+        return tuple(tree[str(i)] for i in range(len(tree)))
+    return None
+
+
 def _find_adam(opt_state: Any) -> Any:
     """The ``ScaleByAdamState`` (mu, nu, count) inside an optax chain's state."""
     if all(_has(opt_state, k) for k in ("mu", "nu", "count")):
         return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for child in opt_state:
-            found = _find_adam(child)
-            if found is not None:
-                return found
+    for child in _children(opt_state) or ():
+        found = _find_adam(child)
+        if found is not None:
+            return found
     return None
 
 
@@ -210,7 +223,9 @@ def _adam_state(opt_state: Any, module: torch.nn.Module | tuple[torch.nn.Module,
     modules = (module,) if single else tuple(module)
     moments = []
     for tree in (_get(adam, "mu"), _get(adam, "nu")):
-        trees = (tree,) if single else tuple(tree)
+        trees = (tree,) if single else _children(tree)
+        if trees is None:
+            raise ValueError(f"an Adam moment over {len(modules)} modules that is not a tuple")
         moments.append([])
         for mod, sub in zip(modules, trees, strict=True):
             state = _dense_layers(sub)
@@ -258,15 +273,46 @@ def sac_state_from_numpy(
     return agent
 
 
+def actor_dims(params: Mapping[str, Any]) -> tuple[int, tuple[int, ...], int]:
+    """``(obs_dim, hidden_dims, action_dim)`` of a flax MLP ``GaussianActor``
+    from its kernels' shapes (``hidden_{i}``, ``mean_head``)."""
+    if "params" in params:
+        params = params["params"]
+    kernels = []
+    while f"hidden_{len(kernels)}" in params:
+        kernels.append(np.shape(params[f"hidden_{len(kernels)}"]["kernel"]))
+    if not kernels or "mean_head" not in params:
+        raise ValueError(f"not the params of an MLP GaussianActor (layers {sorted(params)})")
+    return kernels[0][0], tuple(k[1] for k in kernels), np.shape(params["mean_head"]["kernel"])[1]
+
+
+def sac_state_from_state_dict(state: Mapping[str, Any],
+                              device: str | torch.device = DEFAULT_DEVICE) -> sac.SACState:
+    """``SACState`` from a JAX ``SACState`` whose config is not at hand (a
+    flax msgpack file's): the widths from the actor's kernels
+    (``actor_dims``), the EMA actor where the state holds one."""
+    obs_dim, hidden, action_dim = actor_dims(_get(state, "actor_params"))
+    ema = _get(state, "ema_actor_params")
+    agent = sac_state_from_numpy({**state, "ema_actor_params": None},
+                                 sac.SACConfig(hidden_dims=hidden), obs_dim, action_dim, device)
+    if ema is not None:
+        agent.ema_actor = sac.frozen_copy(agent.actor)
+        agent.ema_actor.load_state_dict(actor_from_flax(ema))
+    return agent
+
+
 def replay_from_numpy(buffer: Any, device: str | torch.device = DEFAULT_DEVICE) -> ReplayBuffer:
     """``ReplayBuffer`` from a JAX ``ReplayBuffer`` mapped to numpy; ``ptr``
-    and ``size`` become host ints."""
+    and ``size`` become host ints. The static ``capacity``, absent from
+    flax's state-dict form, is then the rows of the data."""
     dev = resolve_device(device)
+    data = {k: _tensor(v, dev) for k, v in _get(buffer, "data").items()}
     return ReplayBuffer(
-        data={k: _tensor(v, dev) for k, v in _get(buffer, "data").items()},
+        data=data,
         ptr=int(np.asarray(_get(buffer, "ptr"))),
         size=int(np.asarray(_get(buffer, "size"))),
-        capacity=int(_get(buffer, "capacity")),
+        capacity=(int(_get(buffer, "capacity")) if _has(buffer, "capacity")
+                  else next(iter(data.values())).shape[0]),
     )
 
 

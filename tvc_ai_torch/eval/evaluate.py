@@ -8,9 +8,10 @@ Counterpart of ``tvc_ai_tpu/eval/evaluate.py``:
 
 Each suite runs all its episodes as one batch (``eval.rollout``, K1 on the
 card). ``load_agent_state`` reads the port's own checkpoints
-(``utils.checkpoint``) and ``SACAgent.save`` files (``agents.legacy``); a
-flax msgpack or an orbax checkpoint of the JAX package is out of scope and
-raises.
+(``utils.checkpoint``) and ``SACAgent.save`` files (``agents.legacy``), and
+the JAX package's flax msgpack agent files (its ``SACAgent.save`` file, the
+DAgger students); an orbax checkpoint of the JAX package raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Any
 import torch
 
 from tvc_ai_torch.agents import sac as sac_mod
-from tvc_ai_torch.agents.legacy import read_agent_file
+from tvc_ai_torch.agents.legacy import fit_ema, read_agent_file
 from tvc_ai_torch.env.types import EnvParams, as_float32
 from tvc_ai_torch.env.single import RocketConfig
 from tvc_ai_torch.eval.rollout import (
@@ -256,14 +257,16 @@ def load_agent_state(
 ) -> sac_mod.SACState:
     """The agent of a port checkpoint: a manager root (its latest step) or one
     step directory (of a single process or of a data-parallel run), whose EMA
-    actor is preferred when it has one; or a
-    ``SACAgent.save`` file, restored whole. A flax msgpack file or an orbax
-    checkpoint raises ``NotImplementedError``."""
+    actor is preferred when it has one; or an agent file, restored whole
+    (``agents.legacy.read_agent_file``): a ``SACAgent.save`` file of this
+    package, or a flax msgpack file of the JAX package, ``{"state": SACState}``
+    or the state alone, as the reference reads it. An orbax checkpoint raises
+    ``NotImplementedError``."""
     dev = resolve_device(device)
     path = Path(model_path)
     template = sac_mod.init(obs_dim, action_dim, sac_cfg, dev)
     if path.is_file():
-        return load_state(template, read_agent_file(path, dev)["state"])
+        return load_state(template, fit_ema(template, read_agent_file(path, dev)["state"]))
     mngr, step = CheckpointManager.locate(path)
     # a data-parallel checkpoint's agent is replicated: rank 0's shard holds it
     world = mngr.world_of(step)

@@ -3,8 +3,10 @@
     python -m tvc_ai_torch.evaluate --model_path RUN/checkpoints_best \\
         [--suite standard|robustness|stress|all] [--device cuda|cpu | --cpu] ...
 
-The counterpart of ``scripts/evaluate.py`` for the port's own checkpoints (a
-manager root or one step directory); a flax msgpack or an orbax checkpoint
+The counterpart of ``scripts/evaluate.py``: ``--model_path`` is one of the
+port's own checkpoints (a manager root or one step directory), an agent file
+of the port (``.pt``) or a flax msgpack agent file of the JAX package (its
+``SACAgent.save`` file or a DAgger ``student.msgpack``); an orbax checkpoint
 raises ``NotImplementedError``. Each suite runs all its episodes as one
 batch. It runs on CUDA unless ``--device cpu`` (or ``--cpu``) is given.
 """
@@ -20,7 +22,8 @@ from tvc_ai_torch.utils.devices import add_device_flags, device_from_flags
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="TVC evaluation (PyTorch/CUDA port)")
     parser.add_argument("--model_path", type=str, required=True,
-                        help="checkpoint directory (manager root or one step)")
+                        help="checkpoint directory (manager root or one step), or an "
+                             "agent file (.pt, or the JAX package's .msgpack)")
     parser.add_argument("--output_dir", type=str, default="evaluation_output")
     parser.add_argument("--obs_dim", type=int, default=10)
     parser.add_argument("--action_dim", type=int, default=2)

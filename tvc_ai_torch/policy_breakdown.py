@@ -6,7 +6,8 @@
 
 The counterpart of ``scripts/policy_breakdown.py``, with its flags, defaults
 and printed lines: the policy (a ``student.pt`` in ``SACAgent.save``'s form,
-or a ``theta_student.pt``) flies a batch of suite draws through
+or a ``theta_student.pt``; or the JAX package's ``student.msgpack`` or
+``theta_student.msgpack``) flies a batch of suite draws through
 ``eval.rollout.make_policy_eval_fn`` (K1 on the card), and its strict
 success is reported by |cg|, mass and thrust-scale bins against the analytic
 feasibility labels (climb-away, friction-pinned, equilibrium tilt beyond
@@ -28,7 +29,8 @@ def main(argv: list[str] | None = None) -> int:
 
     p = argparse.ArgumentParser(description="per-axis success breakdown (PyTorch/CUDA port)")
     p.add_argument("--model", required=True,
-                   help="student.pt (a SAC state) or theta_student.pt")
+                   help="student.pt / student.msgpack (a SAC state) or theta_student.pt / "
+                        "theta_student.msgpack")
     p.add_argument("--suite", default="robustness", choices=["robustness", "stress"])
     p.add_argument("--episodes", type=int, default=1024)
     p.add_argument("--history", type=int, default=8)
@@ -65,22 +67,29 @@ def suite_params(suite: str, trim_obs: bool, trim_mode: str):
 
 
 def load_policy(path, params, history: int, hidden, dev):
-    """``(policy_fn, agent)`` of a ``theta_student.pt`` or a ``student.pt``."""
+    """``(policy_fn, agent)`` of a θ-student or a SAC student, in this
+    package's ``.pt`` form or the JAX package's flax msgpack form (whose
+    θ-net params ``convert.theta_net_from_flax`` carries across)."""
     import torch
 
     from tvc_ai_torch.agents import sac as sac_mod
+    from tvc_ai_torch.convert import theta_net_from_flax
     from tvc_ai_torch.env.types import obs_dim
     from tvc_ai_torch.eval.evaluate import load_agent_state
     from tvc_ai_torch.training import theta_student as ts
+    from tvc_ai_torch.utils import flax_msgpack
 
     view_dim = obs_dim(params) * history
-    payload = torch.load(path, map_location=dev, weights_only=True)
+    flax_file = flax_msgpack.is_flax_msgpack(path)
+    payload = (flax_msgpack.load(path) if flax_file
+               else torch.load(path, map_location=dev, weights_only=True))
     if isinstance(payload, dict) and payload.get("kind") == "theta_student":
         tcfg = ts.ThetaDaggerConfig(
             history_len=int(payload["history_len"]),
             hidden_dims=tuple(int(h) for h in payload["hidden_dims"]))
         net = ts.ThetaNet(view_dim, tcfg.hidden_dims, device=dev)
-        net.load_state_dict(payload["params"])
+        net.load_state_dict(theta_net_from_flax(payload["params"]) if flax_file
+                            else payload["params"])
         return ts.make_theta_policy_fn(params, tcfg), net
     actor = load_agent_state(path, view_dim, 2, sac_mod.SACConfig(hidden_dims=tuple(hidden)),
                              dev).actor

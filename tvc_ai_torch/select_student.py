@@ -5,10 +5,11 @@
 
 The counterpart of ``scripts/select_student.py``, with its flags, defaults
 and printed lines: every saved candidate (``student*.pt`` from
-``python -m tvc_ai_torch.dagger_distill --save_every``) is evaluated on the
-official suite with a held-out seed, and the winner is confirmed on a
-second, disjoint seed; ``selection_<suite>.json`` records the rows and the
-confirmed winner is copied to ``student_selected_<suite>.pt``. It runs on
+``python -m tvc_ai_torch.dagger_distill --save_every``, and the JAX
+package's ``student*.msgpack``) is evaluated on the official suite
+with a held-out seed, and the winner is confirmed on a second, disjoint
+seed; ``selection_<suite>.json`` records the rows and the confirmed winner
+is copied to ``student_selected_<suite>`` with its own suffix. It runs on
 CUDA unless ``--cpu`` is given.
 """
 
@@ -46,9 +47,9 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = resolve_device(device_from_flags(p, args))
     out = Path(args.dir)
-    candidates = sorted(out.glob("student*.pt"))
+    candidates = sorted([*out.glob("student*.pt"), *out.glob("student*.msgpack")])
     if not candidates:
-        print(f"no student*.pt under {out}", file=sys.stderr)
+        print(f"no student*.pt or student*.msgpack under {out}", file=sys.stderr)
         return 1
     params = _suite_env_params(args.suite, obs_overrides=dict(drift_obs_enabled=True,
                                                               action_obs_enabled=True))
@@ -88,7 +89,7 @@ def main(argv: list[str] | None = None) -> int:
     (out / f"selection_{args.suite}.json").write_text(
         json.dumps({"rows": rows, "winner": winner}, indent=2))
     # the confirmed winner becomes the canonical per-suite artifact
-    best_path = out / f"student_selected_{args.suite}.pt"
+    best_path = out / f"student_selected_{args.suite}{Path(winner['candidate']).suffix}"
     shutil.copyfile(out / winner["candidate"], best_path)
     print(f"saved {best_path}")
     return 0

@@ -12,6 +12,8 @@ classes (climb-away, friction-pinned, equilibrium tilt beyond the window).
 ``--reroll N`` with ``--obs_noise`` re-rolls each refined controller with
 fresh noise; ``--student_view`` restricts the search to the gains the blind
 student's observation carries. It runs on CUDA unless ``--cpu`` is given.
+``wilson_interval`` (a port addition) gives the 95 % Wilson interval of
+several runs' strict successes pooled.
 """
 
 from __future__ import annotations
@@ -122,6 +124,17 @@ def main(argv: list[str] | None = None) -> int:
         print(f"== {suite} suite ({n} episodes, horizon {horizon}) ==")
         _report(args, params, rp, states, ok, np)
     return 0
+
+
+def wilson_interval(k: int, n: int, level: float = 0.95) -> tuple[float, float]:
+    """The Wilson score interval of ``k`` successes in ``n`` trials."""
+    from statistics import NormalDist
+
+    z = NormalDist().inv_cdf(0.5 + level / 2)
+    p, zz = k / n, z * z / n
+    center = (p + zz / 2) / (1 + zz)
+    half = z * math.sqrt(p * (1 - p) / n + zz / (4 * n)) / (1 + zz)
+    return max(center - half, 0.0), min(center + half, 1.0)
 
 
 def first_episode_success(states, params, horizon: int, gen, rp, d0, design, sched):

@@ -59,8 +59,7 @@ another branch and hang in the next collective:
 single-device, as in the reference (``ValueError`` at a world above 1).
 ``training.warm_start_actor`` reads the port's own student artifact (a
 ``SACAgent.save``-form file, which ``python -m tvc_ai_torch.dagger_distill``
-writes); a flax msgpack student of the JAX package raises
-``NotImplementedError``.
+writes) and the JAX package's flax msgpack student (``student.msgpack``).
 """
 
 from __future__ import annotations
@@ -297,10 +296,12 @@ class Trainer:
         """Replace the fresh actor (and its EMA shadow) with a distilled
         student's: the actor of a ``SACAgent.save``-form file (the
         ``student.pt`` that ``python -m tvc_ai_torch.dagger_distill``
-        writes). The critic, the targets and the optimizers stay fresh, as
-        in the reference: the critic must learn the student's values from
-        data, and a stale Adam state would move the distilled weights at
-        once. A flax msgpack file raises ``NotImplementedError``."""
+        writes) or of the JAX package's flax msgpack student
+        (``{"state": SACState}``, ``scripts/dagger_distill.py``), both through
+        ``agents.legacy.read_agent_file``. The critic, the targets and the
+        optimizers stay fresh, as in the reference: the critic must learn the
+        student's values from data, and a stale Adam state would move the
+        distilled weights at once."""
         if self.world > 1:
             raise ValueError("training.warm_start_actor is single-device for now")
         state = read_agent_file(path, self.device)["state"]

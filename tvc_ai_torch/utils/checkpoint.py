@@ -45,6 +45,15 @@ from tvc_ai_torch.parallel import mesh
 
 CARRY_FILE = "carry.pt"
 HOST_FILE = "host.json"
+# orbax writes zstd-compressed OCDBT files and the standard library has no
+# zstd: the agent goes across as a flax msgpack file, which this package reads
+ORBAX_RECIPE = (
+    "Write its agent as flax msgpack on a machine with the JAX package: restore it with "
+    "that package's eval.evaluate.load_agent_state(path, obs_dim, action_dim, sac_cfg) as "
+    "state, write flax.serialization.msgpack_serialize({'state': "
+    "flax.serialization.to_state_dict(state)}) to agent.msgpack, and pass agent.msgpack "
+    "here (the README's recipe)."
+)
 
 
 def shard_file(rank: int) -> str:
@@ -227,8 +236,8 @@ class CheckpointManager:
         if (path / "carry").is_dir() or any(
                 (d / "carry").is_dir() for d in path.iterdir() if d.name.isdigit()):
             raise NotImplementedError(
-                f"{path} is an orbax checkpoint of the JAX package; this package "
-                f"reads only its own checkpoints (<dir>/<step>/{CARRY_FILE})"
+                f"{path} is an orbax checkpoint of the JAX package, which this package "
+                f"does not read (its own are <dir>/<step>/{CARRY_FILE}). {ORBAX_RECIPE}"
             )
         mngr = CheckpointManager(path)
         step = mngr.latest_step()
