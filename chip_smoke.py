@@ -232,6 +232,18 @@ runs the three suites (``run_all_suites`` at its defaults) on the legacy
 policy and a default-config ``Trainer`` warm-started from the student for
 one 2-step iteration, both through K1.
 
+Phase [21] reads the JAX trainer's orbax checkpoint
+(``tests/fixtures/jax_orbax/``: a default-config JAX ``Trainer`` after one
+2-step iteration, written by the JAX package) with the port's own zstd, OCDBT
+and zarr reader (``utils.orbax_read``): it decodes the agent, then the whole
+carry (the 999,424-row replay ring included) on the host and prints the MB,
+ms and MB/s of each, holds every carry leaf's SHA-256 against the fixture's
+``manifest.json``, and holds the actions and twin Q of
+``load_agent_state(<step dir>)`` against the JAX package's (``expected.npz``)
+at 1e-5; then it runs the three suites on that agent and a default-config
+``Trainer`` resumed from the checkpoint for one 2-step iteration, both
+through K1, and prints the K1 launches of each.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
@@ -4083,6 +4095,128 @@ def jax_artifacts_on_card(scratch: Path, dev) -> dict:
     return launches
 
 
+# [21] the JAX trainer's orbax checkpoint (tests/test_torch_orbax.py writes it;
+# manifest.json names its config overrides and each carry leaf's SHA-256)
+JAX_ORBAX = ROOT / "tests" / "fixtures" / "jax_orbax"
+
+
+def orbax_leaves(tree, prefix: tuple = ()):
+    """(dotted key path, leaf) of every non-None leaf of an orbax tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from orbax_leaves(v, prefix + (str(k),))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from orbax_leaves(v, prefix + (str(i),))
+    elif tree is not None:
+        yield ".".join(prefix), tree
+
+
+def leaf_sha256(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):   # bfloat16
+        return hashlib.sha256(leaf.contiguous().view(torch.int16).numpy().tobytes()).hexdigest()
+    return hashlib.sha256(np.ascontiguousarray(leaf).tobytes()).hexdigest()
+
+
+def timed_decode(ckpts, step: int, prefix: tuple, what: str) -> tuple[dict, float]:
+    """Decode ``prefix`` of ``step`` and print its MB, ms and MB/s."""
+    t0 = time.perf_counter()
+    tree = ckpts.read(step, prefix=prefix)
+    seconds = time.perf_counter() - t0
+    mb = sum(leaf.nbytes for _, leaf in orbax_leaves(tree)) / 2**20
+    log(f"[21] decoded {what}: {mb:.3f} MB of arrays in {seconds * 1e3:.2f} ms of host = "
+        f"{mb / seconds:.3f} MB/s")
+    return tree, seconds
+
+
+def jax_orbax_on_card(scratch: Path, dev) -> dict:
+    """[21]: the JAX trainer's orbax checkpoint through the port's reader and
+    entry points on the card: the agent and the whole carry decoded (MB, ms
+    and MB/s of each), every carry leaf's SHA-256 held exactly, the actions
+    and twin Q of ``load_agent_state(<step dir>)`` held against the JAX
+    package's at ``JAX_FIXTURE_ATOL``; then the three suites on that agent
+    and a default-config ``Trainer`` resumed from the checkpoint for one
+    2-step iteration, both through K1. Returns their K1 launches."""
+    from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints
+
+    t_phase = time.perf_counter()
+    manifest = json.loads((JAX_ORBAX / "manifest.json").read_text())
+    with np.load(JAX_ORBAX / "expected.npz") as npz:
+        expected = dict(npz)
+    root = JAX_ORBAX / "checkpoints"
+    step = manifest["step"]
+    ckpts = OrbaxCheckpoints(root)
+    assert ckpts.latest_step() == step, ckpts.all_steps()
+    log(f"[21] fixture: step {step}, {dir_bytes(root / str(step)) / 2**20:.3f} MB on disk")
+    timed_decode(ckpts, step, ("agent",), "the agent (carry/agent)")
+    carry, _ = timed_decode(ckpts, step, (), "the whole carry (replay ring included)")
+    sums = {path: leaf_sha256(leaf) for path, leaf in orbax_leaves(carry)}
+    bad = sorted(p for p in set(sums) | set(manifest["leaves"])
+                 if sums.get(p) != manifest["leaves"].get(p))
+    assert not bad, bad[:10]
+    assert carry["buffer"]["data"]["obs"].shape[0] == manifest["buffer_rows"]
+    log(f"[21] every carry leaf's SHA-256 equal to the JAX package's: {len(sums)} leaves")
+
+    cfg = load_config(None, manifest["overrides"])
+    sac_cfg = build_sac_config(cfg)
+    obs = torch.from_numpy(expected["obs"]).to(dev)
+
+    def held(agent, what: str) -> float:
+        with torch.no_grad():
+            actions = sac.select_action(agent.actor, obs, deterministic=True)
+            q1, q2 = agent.critic(obs, actions)
+        err = max(float((got.float().cpu() - torch.from_numpy(expected[name])).abs().max())
+                  for name, got in (("actions", actions), ("q1", q1), ("q2", q2)))
+        assert err <= JAX_FIXTURE_ATOL, (what, err)
+        log(f"[21] {what}: actions and twin Q max |card - JAX| {err:.3e} "
+            f"(atol {JAX_FIXTURE_ATOL}): ok")
+        return err
+
+    state = load_agent_state(root / str(step), manifest["obs_dim"], 2, sac_cfg, dev)
+    errs = [held(state, f"load_agent_state(<step dir>) ({manifest['hidden_dims']})")]
+
+    launches = {}
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = run_all_suites(state, sac_cfg, scratch / "orbax_suites", seed=SEED, device=dev)
+    wall = time.perf_counter() - t0
+    launches["orbax_suites"] = k1.step_kernel.launches
+    assert launches["orbax_suites"] == sum(r.steps for r in results.values()), launches
+    for name, r in results.items():
+        assert all(math.isfinite(v) for v in r.metrics.values()), (name, r.metrics)
+    log("[21] run_all_suites on the JAX trainer's agent: "
+        + ", ".join(f"{name} {r.stats.returns.shape[0]} episodes x {r.steps} steps, success "
+                    f"{r.metrics['eval_success_rate']:.3f}" for name, r in results.items())
+        + f"; {wall:.3f} s, K1 launches {launches['orbax_suites']} == steps run")
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, output_dir=scratch / "orbax_resume", resume=root, device=dev)
+    resume_s = time.perf_counter() - t0
+    assert tr.iteration == 1 and tr.env_steps == step, (tr.iteration, tr.env_steps)
+    assert tr.carry.buffer.size == manifest["buffer_size"], tr.carry.buffer.size
+    assert torch.equal(tr.carry.buffer.data["obs"].cpu(),
+                       torch.tensor(carry["buffer"]["data"]["obs"]))
+    errs.append(held(tr.carry.agent, "the resumed Trainer's agent"))
+    evals: list = []
+    counting_evals(tr, evals)
+    tr.cfg.training.total_timesteps = step + cfg.training.num_envs * cfg.training.rollout_steps
+    k1.step_kernel.launches = 0
+    result = tr.train()
+    launches["orbax_resume"] = k1.step_kernel.launches
+    assert result["iterations"] == 2 and launches["orbax_resume"] == (
+        cfg.training.rollout_steps + sum(k for k, _, _ in evals)), (result["iterations"],
+                                                                    launches, evals)
+    train_s = result["stage_timing"]["train_iteration"]["total_sec"]
+    log(f"[21] default-config Trainer resumed from the orbax root in {resume_s:.3f} s "
+        f"(Trainer construction included), then one {cfg.training.num_envs} envs x "
+        f"{cfg.training.rollout_steps} steps iteration: {train_s:.4f} s of training, eval "
+        f"success {result['eval_success_rate']:.3f}; K1 launches {launches['orbax_resume']}")
+    tr.logger.close()
+    log(f"[21] every check held; max |card - JAX| {max(errs):.3e}; the phase took "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
     """[9a]: K1 against its plain version below one block, at N = 1 (the
     single-env path of [17], in contact too), 2, 20 and 50, each N's time
@@ -4721,6 +4855,12 @@ def main() -> int:
         # default-width policy, a trainer warm-started from its student
         phase("[20]")
         ensemble_launches.update(jax_artifacts_on_card(scratch, dev))
+
+        # ---- 21. the JAX trainer's orbax checkpoint on the card: decoded by
+        # the port's own reader, each leaf and the agent's outputs held, the
+        # suites on its agent and a trainer resumed from it
+        phase("[21]")
+        ensemble_launches.update(jax_orbax_on_card(scratch, dev))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

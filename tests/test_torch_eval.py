@@ -327,8 +327,10 @@ def test_load_agent_state(tmp_path):
     (tmp_path / "agent.msgpack").write_bytes(b"\x80")
     with pytest.raises(ValueError, match="no actor_params"):
         t_evaluate.load_agent_state(tmp_path / "agent.msgpack", 10, 2, cfg, device="cpu")
+    # an orbax root whose only step was never completed (no
+    # _CHECKPOINT_METADATA) holds no checkpoint, as the port's own roots
     (tmp_path / "orbax" / "128" / "carry").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="_CHECKPOINT_METADATA"):
         t_evaluate.load_agent_state(tmp_path / "orbax", 10, 2, cfg, device="cpu")
 
 

@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax():
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'tvc_ai_tpu'))\n"
+        f"{FOREIGN!r})\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -68,7 +68,14 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.agents.ensemble",
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
             *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES,
-            *SINGLE_ENV_MODULES, *REMNANT_MODULES, *ARTIFACT_MODULES} <= set(MODULES)
+            *SINGLE_ENV_MODULES, *REMNANT_MODULES, *ARTIFACT_MODULES,
+            *ORBAX_MODULES} <= set(MODULES)
+
+
+# what no module of the port imports: the JAX package and its stack, and the
+# libraries the JAX package's checkpoints are written and read with
+FOREIGN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tvc_ai_tpu", "orbax", "tensorstore",
+           "zstandard")
 
 
 # the transformer policy and the loop's extensions (ICM, physics-informed
@@ -109,18 +116,44 @@ REMNANT_MODULES = ["tvc_ai_torch.tuning", "tvc_ai_torch.tuning.hpo", "tvc_ai_tor
 # the reader of the JAX package's flax msgpack files (it decodes them itself:
 # msgpack is as foreign to the card's host as flax)
 ARTIFACT_MODULES = ["tvc_ai_torch.utils.flax_msgpack"]
+# the reader of the JAX package's orbax checkpoints (zstd, OCDBT and zarr
+# decoded here: none of orbax, tensorstore or zstandard is on the card's host)
+ORBAX_MODULES = ["tvc_ai_torch.utils.zstd", "tvc_ai_torch.utils.ocdbt",
+                 "tvc_ai_torch.utils.orbax_read"]
 
 
 @pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
                          + DISTILL_MODULES + SINGLE_ENV_MODULES + REMNANT_MODULES
-                         + ARTIFACT_MODULES)
+                         + ARTIFACT_MODULES + ORBAX_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
              if isinstance(node, ast.Import) for alias in node.names}
     roots |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module}
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "msgpack", "tvc_ai_tpu"}, (name, roots)
+    assert not roots & set(FOREIGN), (name, roots)
+
+
+def test_orbax_reader_imports_without_its_libraries():
+    """The orbax reader imports, and reads a checkpoint, with orbax,
+    tensorstore and zstandard blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('orbax', 'tensorstore', 'zstandard'):\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {ORBAX_MODULES!r}:\n"
+        "    __import__(name)\n"
+        "from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints\n"
+        "m = OrbaxCheckpoints('tests/fixtures/jax_orbax/checkpoints')\n"
+        "agent = m.read(m.latest_step(), prefix=('agent',))\n"
+        "assert agent['log_alpha'].shape == ()\n"
+        f"bad = sorted(m for m in sys.modules if m and m.split('.')[0] in {FOREIGN!r}"
+        " and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_imports_without_jax():
@@ -131,7 +164,7 @@ def test_chip_smoke_imports_without_jax():
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "finally:\n"
         "    bad = [m for m in sys.modules\n"
-        "           if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'tvc_ai_tpu')]\n"
+        f"           if m.split('.')[0] in {FOREIGN!r}]\n"
         "    assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -12,9 +12,8 @@ the evaluate, export and select_student CLIs run on JAX students. The bars:
 deterministic actions and twin Q 1e-6; Adam ``mu``/``nu`` and counts,
 ``log_alpha`` and ``step`` exact; the warm-started actor exact and the
 critic fresh; the θ-net 1e-6; each ensemble member's actions 1e-6, the
-windows and weights equal. An orbax checkpoint raises
-``NotImplementedError`` naming the msgpack recipe; a truncated file
-``ValueError``.
+windows and weights equal. An orbax checkpoint is read (its own tests are
+``tests/test_torch_orbax.py``); a truncated file raises ``ValueError``.
 
 The checked-in fixtures (``tests/fixtures/jax_msgpack/``: a default-width
 256×256 legacy agent, a narrow student, a θ-student, an ensemble checkpoint
@@ -442,6 +441,10 @@ def test_select_student_takes_jax_students(tmp_path, capsys):
 
 
 def test_orbax_checkpoint_names_the_recipe(tmp_path):
+    """The orbax checkpoint that once raised with the msgpack recipe is read:
+    its manager root and its step directory, the tree as orbax wrote it
+    (``tests/test_torch_orbax.py`` holds the reader to orbax's restore)."""
+    from tvc_ai_torch.utils.checkpoint import CheckpointManager as TCheckpointManager
     from tvc_ai_tpu.utils.checkpoint import CheckpointManager
 
     mngr = CheckpointManager(tmp_path / "orbax")
@@ -449,7 +452,12 @@ def test_orbax_checkpoint_names_the_recipe(tmp_path):
     mngr.wait()
     mngr.close()
     for path in (tmp_path / "orbax", tmp_path / "orbax" / "8"):
-        with pytest.raises(NotImplementedError, match="msgpack_serialize"):
+        reader, step = TCheckpointManager.locate(path)
+        assert step == 8 and reader.host(8) == {}
+        tree = reader.read(step)
+        assert set(tree) == {"w"} and tree["w"].dtype == np.float32
+        np.testing.assert_array_equal(tree["w"], np.ones((2, 3), np.float32))
+        with pytest.raises(KeyError, match="agent"):   # no SAC agent in this tree
             load_agent_state(path, OBS, ACT, t_sac.SACConfig(hidden_dims=NARROW), device="cpu")
 
 

@@ -10,8 +10,7 @@ Each suite runs all its episodes as one batch (``eval.rollout``, K1 on the
 card). ``load_agent_state`` reads the port's own checkpoints
 (``utils.checkpoint``) and ``SACAgent.save`` files (``agents.legacy``), and
 the JAX package's flax msgpack agent files (its ``SACAgent.save`` file, the
-DAgger students); an orbax checkpoint of the JAX package raises
-``NotImplementedError``.
+DAgger students) and orbax checkpoints (``utils.orbax_read``).
 """
 
 from __future__ import annotations
@@ -23,8 +22,10 @@ import time
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
+from tvc_ai_torch import convert
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.agents.legacy import fit_ema, read_agent_file
 from tvc_ai_torch.env.types import EnvParams, as_float32
@@ -37,6 +38,7 @@ from tvc_ai_torch.eval.rollout import (
     to_numpy,
 )
 from tvc_ai_torch.utils.checkpoint import CheckpointManager, load_state
+from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -206,7 +208,6 @@ def plot_dashboard(results: dict[str, SuiteResult], path: Path) -> None:
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
-    import numpy as np
 
     fig, axes = plt.subplots(2, 4, figsize=(20, 9))
     names = list(results)
@@ -255,19 +256,32 @@ def load_agent_state(
     sac_cfg: sac_mod.SACConfig,
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> sac_mod.SACState:
-    """The agent of a port checkpoint: a manager root (its latest step) or one
-    step directory (of a single process or of a data-parallel run), whose EMA
+    """The agent of a checkpoint: a manager root (its latest step) or one step
+    directory, of the port (a single process or a data-parallel run) or of
+    the JAX package's orbax (``<run>/checkpoints_best/<step>``), whose EMA
     actor is preferred when it has one; or an agent file, restored whole
     (``agents.legacy.read_agent_file``): a ``SACAgent.save`` file of this
     package, or a flax msgpack file of the JAX package, ``{"state": SACState}``
-    or the state alone, as the reference reads it. An orbax checkpoint raises
-    ``NotImplementedError``."""
+    or the state alone, as the reference reads it. From an orbax checkpoint
+    only ``carry/agent``'s chunks are decoded, and only the actor, the
+    critics and ``log_alpha`` are taken, as the reference does."""
     dev = resolve_device(device)
     path = Path(model_path)
     template = sac_mod.init(obs_dim, action_dim, sac_cfg, dev)
     if path.is_file():
         return load_state(template, fit_ema(template, read_agent_file(path, dev)["state"]))
     mngr, step = CheckpointManager.locate(path)
+    if isinstance(mngr, OrbaxCheckpoints):
+        agent = mngr.read(step, prefix=("agent",))
+        ema = agent.get("ema_actor_params")
+        template.actor.load_state_dict(
+            convert.actor_from_flax(ema if ema is not None else agent["actor_params"]))
+        template.critic.load_state_dict(convert.critic_from_flax(agent["critic_params"]))
+        template.target_critic.load_state_dict(
+            convert.critic_from_flax(agent["target_critic_params"]))
+        template.log_alpha = torch.tensor(np.asarray(agent["log_alpha"], np.float32),
+                                          device=dev)
+        return template
     # a data-parallel checkpoint's agent is replicated: rank 0's shard holds it
     world = mngr.world_of(step)
     payload, _ = mngr.restore(step, dev, rank=0, world=world)

@@ -3,12 +3,11 @@
     python -m tvc_ai_torch.evaluate --model_path RUN/checkpoints_best \\
         [--suite standard|robustness|stress|all] [--device cuda|cpu | --cpu] ...
 
-The counterpart of ``scripts/evaluate.py``: ``--model_path`` is one of the
-port's own checkpoints (a manager root or one step directory), an agent file
-of the port (``.pt``) or a flax msgpack agent file of the JAX package (its
-``SACAgent.save`` file or a DAgger ``student.msgpack``); an orbax checkpoint
-raises ``NotImplementedError``. Each suite runs all its episodes as one
-batch. It runs on CUDA unless ``--device cpu`` (or ``--cpu``) is given.
+The counterpart of ``scripts/evaluate.py``: ``--model_path`` is a checkpoint
+of the port or an orbax checkpoint of the JAX package (a manager root or one
+step directory), an agent file of the port (``.pt``) or a flax msgpack agent
+file of the JAX package (its ``SACAgent.save`` file or a DAgger
+``student.msgpack``). Each suite runs all its episodes as one batch. It runs on CUDA unless ``--device cpu`` (or ``--cpu``) is given.
 """
 
 from __future__ import annotations

@@ -15,13 +15,16 @@ data parallel over several processes (``parallel.mesh``):
   EMA actor when there is one (nominal, optional robust, and stage evals);
   in hierarchical mode ``make_hier_eval_fn`` on ``(actor, high level)``;
 - checkpoints are ``utils.checkpoint`` (best, best-nominal, periodic, final,
-  and a recovery save on an exception) with a real ``resume``.
+  and a recovery save on an exception) with a real ``resume``, which also
+  takes the JAX package's orbax checkpoints (``utils.orbax_read``, then
+  ``convert.train_carry_from_numpy``; at world 1 only).
 
 One ``torch.Generator`` on the device, seeded from ``globals.seed``, stands
 in for the reference's ``self.key``: it seeds the carry and draws the
 evaluations and the interventions; the carry keeps its own generator for the
 iteration. Both generators' states are checkpointed, so a resumed run
-continues exactly.
+continues exactly. A JAX checkpoint holds JAX keys instead, which are
+dropped: resuming one seeds both generators from ``globals.seed``.
 
 The host reads the device once per iteration (the metrics, ``summarize``,
 the episode ring), never per step. Each ``train_iteration`` stage ends in a
@@ -71,6 +74,7 @@ from pathlib import Path
 
 import torch
 
+from tvc_ai_torch import convert
 from tvc_ai_torch.agents import replay as replay_mod
 from tvc_ai_torch.agents import sac as sac_mod
 from tvc_ai_torch.agents.legacy import read_agent_file
@@ -90,6 +94,7 @@ from tvc_ai_torch.training.stability import (
 from tvc_ai_torch.utils.checkpoint import CheckpointManager, load_state, save_json
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 from tvc_ai_torch.utils.logging import SilentLogger, TrainingLogger, make_output_dir
+from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints
 from tvc_ai_torch.utils.profiling import StageTimer
 
 
@@ -398,21 +403,33 @@ class Trainer:
 
     def _resume(self, resume_dir) -> None:
         """Resume from a manager root (its latest step) or one step directory
-        (exactly that step). Field-tolerant: a field the checkpoint lacks
-        keeps the fresh carry's value. Tensor shapes follow the checkpoint
-        (its env batch and replay capacity), not the new config."""
+        (exactly that step), of the port or of the JAX package's orbax.
+        Field-tolerant: a field the checkpoint lacks keeps the fresh carry's
+        value. Tensor shapes follow the checkpoint (its env batch and replay
+        capacity), not the new config."""
         mngr, step = CheckpointManager.locate(resume_dir)
-        state, host = mngr.restore(step, self.device, self.rank, self.world)
-        self.carry = load_state(self.carry, state["carry"])
-        if "generator" in state:
-            load_state(self.generator, state["generator"])
+        if isinstance(mngr, OrbaxCheckpoints):
+            if self.world > 1:
+                raise ValueError(
+                    f"{mngr.directory / str(step)} is an orbax checkpoint of the JAX package; "
+                    f"resuming one runs at world 1, not {self.world}")
+            self.carry = self._carry_from_orbax(mngr.read(step))
+            self.generator.manual_seed(self.cfg.globals.seed)
+            host = mngr.host(step)
+        else:
+            state, host = mngr.restore(step, self.device, self.rank, self.world)
+            self.carry = load_state(self.carry, state["carry"])
+            if "generator" in state:
+                load_state(self.generator, state["generator"])
         self.iteration = int(host.get("iteration", 0))
         self.best_metric = float(host.get("best_metric", float("-inf")))
         if self.ckpt_best.latest_step() is None:
             # resuming into a fresh run: a best metric from another eval
             # regime would suppress every best save, so start anew
             self.best_metric = float("-inf")
-        key = host.get("best_nominal_key", [float("-inf"), float("-inf")])
+        key = host.get("best_nominal_key")
+        if key is None:   # the reference's checkpoints before best_nominal_key
+            key = [host.get("best_nominal_metric", float("-inf")), float("-inf")]
         self.best_nominal_key = (float(key[0]), float(key[1]))
         if self.ckpt_best_nominal.latest_step() is None:
             self.best_nominal_key = (float("-inf"), float("-inf"))
@@ -436,6 +453,34 @@ class Trainer:
             self.iteration,
             f"{self.env_steps:,}",
         )
+
+    def _carry_from_orbax(self, disk: dict) -> loop_mod.TrainCarry:
+        """The carry of a JAX ``TrainCarry`` read from orbax, through
+        ``convert.train_carry_from_numpy``, as the reference's ``fill`` merges
+        it: a field the checkpoint lacks or holds as None (and an
+        ``env_states.prev_imu`` it lacks) keeps the fresh carry's value; a
+        field the config turns off stays off. The carry's generator is seeded
+        from ``globals.seed``."""
+        fresh = self.carry
+        names = [f.name for f in dataclasses.fields(fresh)
+                 if f.name not in ("generator", "env_steps_host")]
+        taken = {n for n in names
+                 if disk.get(n) is not None and getattr(fresh, n) is not None}
+        missing = {"env_states", "agent", "buffer"} - taken
+        if missing:
+            raise ValueError(f"the orbax carry lacks {sorted(missing)}")
+        full = {n: disk[n] if n in taken else None for n in names}
+        for n in names:
+            value = getattr(fresh, n)
+            if n not in taken and isinstance(value, torch.Tensor):
+                full[n] = value.cpu().numpy()
+        carry = convert.train_carry_from_numpy(full, self.sac_cfg, self.loop_cfg, self.device,
+                                               seed=self.cfg.globals.seed)
+        kept = {n: getattr(fresh, n) for n in names if n not in taken}
+        if carry.env_states.prev_imu is None and fresh.env_states.prev_imu is not None:
+            kept["env_states"] = dataclasses.replace(carry.env_states,
+                                                     prev_imu=fresh.env_states.prev_imu)
+        return dataclasses.replace(carry, **kept)
 
     @property
     def env_steps(self) -> int:

@@ -23,6 +23,11 @@ so a step directory appears only once every shard is in it. A checkpoint is
 restored at the world size that wrote it (the reference restores one global
 array at any layout; the port's shards are the ranks' own).
 
+``CheckpointManager.locate`` also takes the JAX package's orbax checkpoints
+(a manager root or one step directory): it hands them to
+``utils.orbax_read.OrbaxCheckpoints``, which reads them as numpy trees in the
+JAX package's own layout.
+
 ``state_of`` turns a tree of dataclasses, dicts, lists, tensors, modules and
 generators into plain nested dicts and lists of tensors (modules by their
 ``state_dict``, generators by ``get_state()``); ``load_state`` puts such a
@@ -42,18 +47,10 @@ from typing import Any
 import torch
 
 from tvc_ai_torch.parallel import mesh
+from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints, is_orbax_root, is_orbax_step
 
 CARRY_FILE = "carry.pt"
 HOST_FILE = "host.json"
-# orbax writes zstd-compressed OCDBT files and the standard library has no
-# zstd: the agent goes across as a flax msgpack file, which this package reads
-ORBAX_RECIPE = (
-    "Write its agent as flax msgpack on a machine with the JAX package: restore it with "
-    "that package's eval.evaluate.load_agent_state(path, obs_dim, action_dim, sac_cfg) as "
-    "state, write flax.serialization.msgpack_serialize({'state': "
-    "flax.serialization.to_state_dict(state)}) to agent.msgpack, and pass agent.msgpack "
-    "here (the README's recipe)."
-)
 
 
 def shard_file(rank: int) -> str:
@@ -225,26 +222,25 @@ class CheckpointManager:
         return state, json.loads((path / HOST_FILE).read_text())
 
     @staticmethod
-    def locate(path: str | Path) -> tuple["CheckpointManager", int]:
+    def locate(path: str | Path) -> tuple["CheckpointManager | OrbaxCheckpoints", int]:
         """(manager, step) for a manager root (its latest step) or a single
-        step directory like ``<run>/checkpoints_best/7208960``."""
+        step directory like ``<run>/checkpoints_best/7208960``: of this
+        package, or of the JAX package's orbax (an ``OrbaxCheckpoints``)."""
         path = Path(path)
         if path.name.isdigit() and _complete(path):
             return CheckpointManager(path.parent), int(path.name)
+        if is_orbax_step(path):
+            return OrbaxCheckpoints(path.parent), int(path.name)
         if not path.is_dir():
             raise FileNotFoundError(f"no checkpoint directory at {path}")
-        if (path / "carry").is_dir() or any(
-                (d / "carry").is_dir() for d in path.iterdir() if d.name.isdigit()):
-            raise NotImplementedError(
-                f"{path} is an orbax checkpoint of the JAX package, which this package "
-                f"does not read (its own are <dir>/<step>/{CARRY_FILE}). {ORBAX_RECIPE}"
-            )
-        mngr = CheckpointManager(path)
+        orbax = is_orbax_root(path)
+        mngr = OrbaxCheckpoints(path) if orbax else CheckpointManager(path)
         step = mngr.latest_step()
         if step is None:
             raise FileNotFoundError(
-                f"no completed checkpoints under {path} (a process killed mid-save "
-                "leaves only *.tmp-<pid> directories)"
+                f"no completed checkpoints under {path} (a process killed mid-save leaves "
+                + ("only step directories without _CHECKPOINT_METADATA)" if orbax
+                   else "only *.tmp-<pid> directories)")
             )
         return mngr, step
 
