@@ -244,6 +244,16 @@ at 1e-5; then it runs the three suites on that agent and a default-config
 ``Trainer`` resumed from the checkpoint for one 2-step iteration, both
 through K1, and prints the K1 launches of each.
 
+Phase [22] reads the JAX trainer's checkpoint written by two devices
+(``tests/fixtures/jax_orbax_mesh2/``: the same configuration at
+``hardware.mesh_devices=2``), decodes it (ms) with every leaf's SHA-256
+held; resumes it at world 2, two gloo ranks on the one card, each rank's
+env rows, replay shard, counters and episode ring held against its shard's
+SHA-256s before training; resumes it at world 1 with the replay re-laid in
+global step blocks (held against the explicit permutation of the decoded
+rows); and trains each resume one 2-step iteration with its eval round
+through K1, printing the launches of each rank and the phase's seconds.
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
@@ -2176,7 +2186,7 @@ def _dp_worker(index: int, job: str, root: str) -> None:
     """A spawned rank: "check" runs [14a] (ranks 0-1 on the card, 2-3 on the
     CPU, two gloo groups), "full" [14b]'s world 2 (both ranks on the card);
     "nccl_check" and "nccl_full" run the same on NCCL, rank r on cuda:r
-    ([14c])."""
+    ([14c]); "orbax_mesh" [22]'s world 2 (both ranks on the card)."""
     nccl = job.startswith("nccl")
     side = "cuda" if job != "check" or index < DP_WORLD else "cpu"
     rank = index % DP_WORLD
@@ -2185,7 +2195,8 @@ def _dp_worker(index: int, job: str, root: str) -> None:
                                   init_method=f"file://{root}/rv-{side}", rank=rank,
                                   world_size=DP_WORLD, local_rank=rank if nccl else 0)
     set_parity_precision()
-    run = dp_check_rank if job in ("check", "nccl_check") else dp_full_rank
+    run = {"check": dp_check_rank, "nccl_check": dp_check_rank,
+           "orbax_mesh": orbax_mesh_rank}.get(job, dp_full_rank)
     run(rank, dev, Path(root), side)
     mesh.barrier()
     torch.distributed.destroy_process_group()
@@ -4118,13 +4129,14 @@ def leaf_sha256(leaf) -> str:
     return hashlib.sha256(np.ascontiguousarray(leaf).tobytes()).hexdigest()
 
 
-def timed_decode(ckpts, step: int, prefix: tuple, what: str) -> tuple[dict, float]:
+def timed_decode(ckpts, step: int, prefix: tuple, what: str, tag: str = "[21]"
+                 ) -> tuple[dict, float]:
     """Decode ``prefix`` of ``step`` and print its MB, ms and MB/s."""
     t0 = time.perf_counter()
     tree = ckpts.read(step, prefix=prefix)
     seconds = time.perf_counter() - t0
     mb = sum(leaf.nbytes for _, leaf in orbax_leaves(tree)) / 2**20
-    log(f"[21] decoded {what}: {mb:.3f} MB of arrays in {seconds * 1e3:.2f} ms of host = "
+    log(f"{tag} decoded {what}: {mb:.3f} MB of arrays in {seconds * 1e3:.2f} ms of host = "
         f"{mb / seconds:.3f} MB/s")
     return tree, seconds
 
@@ -4214,6 +4226,140 @@ def jax_orbax_on_card(scratch: Path, dev) -> dict:
     tr.logger.close()
     log(f"[21] every check held; max |card - JAX| {max(errs):.3e}; the phase took "
         f"{time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- 22. sharded orbax checkpoints
+JAX_ORBAX_MESH2 = ROOT / "tests" / "fixtures" / "jax_orbax_mesh2"
+
+
+def mesh2_held_paths(manifest: dict) -> list[str]:
+    """The leaves [22] holds in a resumed carry against the manifest: every
+    leaf but the agent's (held through its outputs in [21]) and the JAX keys
+    (dropped by the port)."""
+    return [p for p in manifest["shards"][0]
+            if not p.startswith(("agent.", "env_states.key")) and p != "key"]
+
+
+def resumed_leaf_sums(carry, paths: list[str]) -> dict[str, str]:
+    """The SHA-256 of each JAX leaf path's counterpart in a port carry (the
+    port's fields keep the JAX package's names; ``ptr`` and ``size`` are
+    host ints, hashed as the int32 the JAX package stores)."""
+    sums = {}
+    for path in paths:
+        node = carry
+        for part in path.split("."):
+            node = node[part] if isinstance(node, dict) else getattr(node, part)
+        sums[path] = leaf_sha256(node.cpu().numpy() if isinstance(node, torch.Tensor)
+                                 else np.asarray(node, np.int32))
+    return sums
+
+
+def train_resumed(tr, step: int) -> tuple[dict, int, list, float]:
+    """One iteration and the eval round of a resumed trainer, with K1's
+    count set to 0 just before: (result, launches, evals, seconds)."""
+    evals: list = []
+    counting_evals(tr, evals)
+    tr.cfg.training.total_timesteps = step + tr.loop_cfg.num_envs * tr.loop_cfg.rollout_steps
+    mesh.barrier()
+    k1.step_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = tr.train()
+    seconds = time.perf_counter() - t0
+    launches = k1.step_kernel.launches
+    assert result["iterations"] == 2 and math.isfinite(result["eval_success_rate"]), result
+    assert launches == tr.loop_cfg.rollout_steps + sum(n for n, _, _ in evals), (launches, evals)
+    return result, launches, evals, seconds
+
+
+def orbax_mesh_rank(rank: int, dev, root: Path, side: str) -> None:
+    """[22] on one rank of world 2 (gloo, both ranks on the one card): the
+    mesh-2 fixture resumed, the rank's carry held against its shard's
+    SHA-256s before training, then one 2-step iteration and the eval round
+    (rank 0 evaluates)."""
+    manifest = json.loads((JAX_ORBAX_MESH2 / "manifest.json").read_text())
+    cfg = load_config(None, [*manifest["overrides"], f"globals.output_dir={root}"])
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, output_dir=root / "run", resume=JAX_ORBAX_MESH2 / "checkpoints", device=dev)
+    resume_s = time.perf_counter() - t0
+    assert tr.world == DP_WORLD and tr.rank == rank, (tr.world, tr.rank)
+    sums = resumed_leaf_sums(tr.carry, mesh2_held_paths(manifest))
+    bad = sorted(p for p, h in sums.items() if h != manifest["shards"][rank][p])
+    result, launches, evals, train_s = train_resumed(tr, manifest["step"])
+    torch.save({"bad": bad, "held": len(sums), "envs": tr.carry.obs.shape[0],
+                "rows": tr.carry.buffer.capacity, "resume_s": resume_s, "train_s": train_s,
+                "launches": launches, "eval_steps": sum(ran for _, ran, _ in evals),
+                "env_steps": result["env_steps"], "success": result["eval_success_rate"]},
+               root / f"{side}{rank}.pt")
+    tr.logger.close()
+
+
+def jax_orbax_mesh_on_card(scratch: Path, dev) -> dict:
+    """[22]: the JAX trainer's checkpoint written at
+    ``hardware.mesh_devices=2`` (``tests/fixtures/jax_orbax_mesh2``): decoded
+    by the port's reader with every leaf's SHA-256 held; resumed at world 2
+    (two gloo ranks on the one card), each rank's carry held against its
+    shard's SHA-256s; resumed at world 1, the replay re-laid in global step
+    blocks (held against the explicit permutation of the decoded rows) with
+    ``ptr`` and ``size`` doubled and the env rows in global order; each
+    resume then trains one 2-step iteration and runs the eval round through
+    K1. Returns the K1 launches of each rank and of world 1."""
+    from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints
+
+    t_phase = time.perf_counter()
+    manifest = json.loads((JAX_ORBAX_MESH2 / "manifest.json").read_text())
+    root = JAX_ORBAX_MESH2 / "checkpoints"
+    step, n = manifest["step"], manifest["num_envs"]
+    ckpts = OrbaxCheckpoints(root)
+    assert ckpts.latest_step() == step, ckpts.all_steps()
+    carry, decode_s = timed_decode(ckpts, step, (), "the mesh-2 carry (both shards)", "[22]")
+    sums = {path: leaf_sha256(leaf) for path, leaf in orbax_leaves(carry)}
+    bad = sorted(p for p in set(sums) | set(manifest["leaves"])
+                 if sums.get(p) != manifest["leaves"].get(p))
+    assert not bad, bad[:10]
+    assert mesh.jax_carry_shards(carry) == manifest["devices"] == DP_WORLD
+    log(f"[22] fixture: step {step}, {dir_bytes(root / str(step)) / 2**20:.3f} MB on disk, "
+        f"{manifest['devices']} shards; every leaf's SHA-256 equal to the JAX package's: "
+        f"{len(sums)} leaves")
+
+    launches = {}
+    run_ranks("orbax_mesh", DP_WORLD, scratch / "orbax_mesh2")
+    ranks = [torch.load(scratch / "orbax_mesh2" / f"cuda{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    for r, row in enumerate(ranks):
+        assert not row["bad"], (r, row["bad"][:10])
+        assert row["envs"] == n // DP_WORLD and row["env_steps"] == step + n * 2, row
+        launches[f"orbax_mesh2_rank{r}"] = row["launches"]
+        log(f"[22] world 2, rank {r}: resumed in {row['resume_s']:.3f} s (Trainer construction "
+            f"and its own decode included); {row['held']} leaves' SHA-256 equal to shard {r}'s "
+            f"({row['envs']} envs, {row['rows']} replay rows); one iteration + eval round in "
+            f"{row['train_s']:.3f} s, eval success {row['success']:.3f}; K1 launches "
+            f"{row['launches']} ({row['eval_steps']} eval steps)")
+
+    cfg = load_config(None, [*manifest["overrides"], "hardware.mesh_devices=1"])
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, output_dir=scratch / "orbax_mesh_w1", resume=root, device=dev)
+    resume_s = time.perf_counter() - t0
+    buf, rows = tr.carry.buffer, manifest["buffer_rows"]
+    assert (buf.ptr, buf.size) == (2 * manifest["buffer_ptr"], 2 * manifest["buffer_size"])
+    g = np.arange(rows)
+    block, env, local = g // n, g % n, n // DP_WORLD
+    perm = env // local * (rows // DP_WORLD) + block * local + env % local
+    for k, v in carry["buffer"]["data"].items():
+        assert torch.equal(buf.data[k].cpu(), torch.from_numpy(np.ascontiguousarray(v[perm]))), k
+    assert torch.equal(tr.carry.obs.cpu(), torch.from_numpy(carry["obs"]))
+    assert tr.carry.ep_ring_seq.shape[0] == manifest["ring_size"]
+    result, launches["orbax_mesh2_world1"], evals, train_s = train_resumed(tr, step)
+    log(f"[22] world 1: resumed in {resume_s:.3f} s; replay re-laid in {rows // n} global step "
+        f"blocks equal to the permuted decoded rows, ptr {buf.ptr} and size {buf.size} (2 x the "
+        f"shards'); one iteration + eval round in {train_s:.3f} s, eval success "
+        f"{result['eval_success_rate']:.3f}; K1 launches {launches['orbax_mesh2_world1']}")
+    tr.logger.close()
+    del tr
+    gc.collect()
+    log(f"[22] decode {decode_s * 1e3:.2f} ms; K1 launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; the phase took {time.perf_counter() - t_phase:.3f} s")
     return launches
 
 
@@ -4861,6 +5007,12 @@ def main() -> int:
         # suites on its agent and a trainer resumed from it
         phase("[21]")
         ensemble_launches.update(jax_orbax_on_card(scratch, dev))
+
+        # ---- 22. the JAX trainer's checkpoint written by two devices: its
+        # shards resumed at world 2 (two gloo ranks on the card) and re-laid
+        # at world 1, each then trained one iteration with its eval round
+        phase("[22]")
+        ensemble_launches.update(jax_orbax_mesh_on_card(scratch, dev))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -18,7 +18,7 @@ through ``tvc_ai_torch.utils.orbax_read`` (``utils.ocdbt`` over
   package's ``load_agent_state``; the EMA actor preferred;
 - ``Trainer(resume=<orbax dir>)``: the carry equal to
   ``convert.train_carry_from_numpy`` of the JAX-restored carry, exactly, and
-  the host fields equal; world > 1 refused;
+  the host fields equal; rank 0 of world 2 takes its half, world 3 is refused;
 - the committed fixture (``tests/fixtures/jax_orbax/``, a default-config JAX
   ``Trainer`` checkpoint after one 2-step iteration, which ``chip_smoke.py``
   [21] reads on the card): actions and twin Q against ``expected.npz``, every
@@ -470,8 +470,18 @@ def test_trainer_resumes_a_jax_checkpoint(where, jax_run, tmp_path):
     assert tr.env_steps == jax_run.step
     assert torch.equal(tr.generator.get_state(),
                        torch.Generator().manual_seed(cfg.globals.seed).get_state())
+    # rank 0 of two: the first half of the envs and of every step block
     tr.world = 2
-    with pytest.raises(ValueError, match="world 1, not 2"):
+    tr._resume(path)
+    half = cfg.training.num_envs // 2
+    assert torch.equal(tr.carry.obs, want.obs[:half])
+    blocks = want.buffer.capacity // cfg.training.num_envs
+    assert torch.equal(tr.carry.buffer.data["obs"], want.buffer.data["obs"].reshape(
+        blocks, cfg.training.num_envs, -1)[:, :half].reshape(blocks * half, -1))
+    assert (tr.carry.buffer.ptr, tr.carry.buffer.size) == (want.buffer.ptr // 2,
+                                                           want.buffer.size // 2)
+    tr.world = 3
+    with pytest.raises(ValueError, match="1 device.*world 3"):
         tr._resume(path)
 
 

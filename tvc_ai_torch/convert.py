@@ -250,17 +250,26 @@ def sac_state_from_numpy(
     obs_dim: int,
     action_dim: int,
     device: str | torch.device = DEFAULT_DEVICE,
+    ema_from_state: bool = False,
 ) -> sac.SACState:
     """``SACState`` from a JAX ``SACState`` mapped to numpy: the actor,
     critic, target critic and EMA actor parameters, ``log_alpha``, the three
     optax states (``mu``/``nu``/``count`` from inside ``chain(clip,
-    adam(schedule))`` and from the temperature's ``adam``) and ``step``."""
+    adam(schedule))`` and from the temperature's ``adam``) and ``step``.
+    The EMA actor must be in both the state and the config or in neither
+    (``ValueError``); with ``ema_from_state`` it is there exactly where the
+    state holds one, whatever ``cfg.ema_decay`` says (a resume then merges
+    it with the fresh carry's, ``utils.checkpoint.merge_state``)."""
     dev = resolve_device(device)
+    ema = _get(state, "ema_actor_params")
+    if ema_from_state:
+        cfg = dataclasses.replace(cfg, ema_decay=0.0)
     agent = sac.init(obs_dim, action_dim, cfg, dev)
     agent.actor.load_state_dict(actor_from_flax(_get(state, "actor_params")))
     agent.critic.load_state_dict(critic_from_flax(_get(state, "critic_params")))
     agent.target_critic.load_state_dict(critic_from_flax(_get(state, "target_critic_params")))
-    ema = _get(state, "ema_actor_params")
+    if ema_from_state and ema is not None:
+        agent.ema_actor = sac.frozen_copy(agent.actor)
     if (ema is None) != (agent.ema_actor is None):
         raise ValueError("the EMA actor is present in one of the state and the config only")
     if ema is not None:
@@ -292,13 +301,8 @@ def sac_state_from_state_dict(state: Mapping[str, Any],
     flax msgpack file's): the widths from the actor's kernels
     (``actor_dims``), the EMA actor where the state holds one."""
     obs_dim, hidden, action_dim = actor_dims(_get(state, "actor_params"))
-    ema = _get(state, "ema_actor_params")
-    agent = sac_state_from_numpy({**state, "ema_actor_params": None},
-                                 sac.SACConfig(hidden_dims=hidden), obs_dim, action_dim, device)
-    if ema is not None:
-        agent.ema_actor = sac.frozen_copy(agent.actor)
-        agent.ema_actor.load_state_dict(actor_from_flax(ema))
-    return agent
+    return sac_state_from_numpy(state, sac.SACConfig(hidden_dims=hidden), obs_dim, action_dim,
+                                device, ema_from_state=True)
 
 
 def replay_from_numpy(buffer: Any, device: str | torch.device = DEFAULT_DEVICE) -> ReplayBuffer:
@@ -362,11 +366,12 @@ def train_carry_from_numpy(
     loop_cfg: TrainLoopConfig,
     device: str | torch.device = DEFAULT_DEVICE,
     seed: int = 0,
+    ema_from_state: bool = False,
 ) -> TrainCarry:
     """``TrainCarry`` from a JAX ``TrainCarry`` mapped to numpy, with the
     ICM, RND and high-level states and the goal fields when present. The key
     becomes a generator seeded with ``seed``; ``env_steps_host`` is
-    ``env_steps[0]``."""
+    ``env_steps[0]``. ``ema_from_state``: as ``sac_state_from_numpy``'s."""
     dev = resolve_device(device)
     window = _get(carry, "obs_window")
     demo = _get(carry, "demo_buffer")
@@ -381,7 +386,7 @@ def train_carry_from_numpy(
         env_states=env_state_from_numpy(_get(carry, "env_states"), dev),
         obs=_tensor(_get(carry, "obs"), dev),
         agent=sac_state_from_numpy(_get(carry, "agent"), sac_cfg, policy_obs_dim(loop_cfg),
-                                   loop_cfg.action_dim, dev),
+                                   loop_cfg.action_dim, dev, ema_from_state),
         buffer=replay_from_numpy(_get(carry, "buffer"), dev),
         generator=torch.Generator(device=dev).manual_seed(seed),
         obs_window=None if window is None else _tensor(window, dev),

@@ -61,6 +61,10 @@ Backends: NCCL for CUDA devices, gloo for the CPU, chosen by the caller or
 by the device's type, never as a retreat from a failed init. gloo may also
 join ranks on CUDA devices (several ranks on one card): there each
 all-reduce is staged through the host.
+
+A JAX package's checkpoint written over a mesh of n devices holds the
+global arrays in that mesh's layout; ``shard_jax_carry`` gives a rank its
+part at any world (the shard itself at world n, a re-laid part otherwise).
 """
 
 from __future__ import annotations
@@ -375,3 +379,112 @@ def make_sharded_ensemble_train(env_params, ens_cfg, num_envs: int, rollout_step
         for actor in ensemble.ACTORS
     }
     return init_fn, train_fns
+
+
+# ---------------------------------------------------------------- JAX checkpoints
+# the leaves of the JAX package's ``TrainCarry`` that its ``carry_specs``
+# lays out over the mesh's data axis, besides ``buffer.data``: the env rows,
+# and one episode ring (and ring pointer) per device
+JAX_ENV_LEAVES = ("env_states", "obs", "obs_window", "goal", "goal_obs", "env_steps", "episodes",
+                  "successes", "ep_return", "ep_length", "return_sum", "length_sum")
+JAX_RING_LEAVES = ("ep_ring_return", "ep_ring_length", "ep_ring_success", "ep_ring_seq",
+                   "ep_ring_goal", "ep_ring_goal_obs")
+
+
+def jax_carry_shards(disk: dict) -> int:
+    """How many devices wrote a JAX ``TrainCarry`` read from orbax: the
+    length of its ``ep_ring_ptr``, one pointer per device (1 without one)."""
+    ptr = disk.get("ep_ring_ptr")
+    return 1 if ptr is None else int(np.shape(ptr)[0])
+
+
+def _map(tree: Any, fn) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def shard_jax_carry(disk: dict, n: int, world: int, rank: int, num_envs: int,
+                    ring_size: int) -> dict:
+    """Rank ``rank``'s part, at ``world`` ranks, of a JAX ``TrainCarry``
+    that a mesh of ``n`` devices wrote (``utils.orbax_read``'s numpy tree of
+    the global arrays), laid out as ``make_sharded_train`` holds a run of
+    ``num_envs`` envs with rings of ``ring_size`` slots on that rank.
+
+    The JAX package's layout (its ``carry_specs`` and ``make_sharded_train``):
+    device d holds env rows ``[d·N/n, (d+1)·N/n)``, replay rows ``[d·cap,
+    (d+1)·cap)`` with its own ``ptr`` and ``size`` (equal on every device,
+    stored once), ring entries ``[d·K, (d+1)·K)`` and ``ep_ring_ptr[d]``;
+    the agent and the other learners' states are replicated.
+
+    - ``n == world == 1``: ``disk`` itself.
+    - ``world == n``: device ``rank``'s rows, replay, ring and pointer, as
+      they are.
+    - Otherwise the checkpoint is first laid out as one device would hold
+      it: each device's step block t (its replay rows ``[t·N/n, (t+1)·N/n)``)
+      becomes global rows ``[t·N, (t+1)·N)`` in global env order, and
+      ``ptr`` and ``size`` count all of them. That is then split as a fresh
+      run at ``world`` is split: the rank's envs ``[rank·N/w, (rank+1)·N/w)``
+      and their rows of every step block. The n rings become ``world`` rings
+      of K slots holding the newest ``world·K`` entries by ``ep_ring_seq``,
+      in the order the drain reads them (by ``seq``, ties in ring order), K
+      to a rank from rank 0, each pointer at its next free slot.
+
+    Raises ``ValueError``, naming ``n`` and ``world``, where the env batch,
+    the replay or the ring does not lay out: the shards are never read as
+    one ring."""
+    if n == world == 1:
+        return disk
+    what = f"a JAX checkpoint written by {n} device(s), resumed at world {world}"
+    envs = int(np.shape(disk["obs"])[0])
+    if envs != num_envs or num_envs % n or num_envs % world:
+        raise ValueError(f"{what}: its {envs} envs must be the config's num_envs {num_envs} "
+                         f"and divide over both {n} and {world}")
+    ring = int(np.shape(disk["ep_ring_seq"])[0])
+    if ring != n * ring_size:
+        raise ValueError(f"{what}: its episode rings hold {ring} entries, not {n} x {ring_size}")
+    data = disk["buffer"]["data"]
+    rows = int(np.shape(next(iter(data.values())))[0])
+    local, per = num_envs // n, num_envs // world
+    ptr, size = (int(np.asarray(disk["buffer"][k])) for k in ("ptr", "size"))
+    if rows % n or (rows // n) % local or ptr % local or size % local:
+        raise ValueError(f"{what}: its replay of {rows} rows (ptr {ptr}, size {size}) is not "
+                         f"{n} shards of whole {local}-env step blocks")
+    cap = rows // n
+    blocks = cap // local
+    lo, hi = rank * per, (rank + 1) * per
+    out = dict(disk)
+    for name in JAX_ENV_LEAVES:
+        out[name] = _map(disk.get(name), lambda x: x[lo:hi])
+    if world == n:
+        buffer_data = {k: v[rank * cap:(rank + 1) * cap] for k, v in data.items()}
+        ring_rows = np.arange(rank * ring_size, (rank + 1) * ring_size)
+        ring_ptr = np.asarray(disk["ep_ring_ptr"])[rank:rank + 1]
+    else:
+        def relaid(v):
+            steps = v.reshape(n, blocks, local, *v.shape[1:]).swapaxes(0, 1)
+            mine = steps.reshape(blocks, world, per, *v.shape[1:])[:, rank]
+            return np.ascontiguousarray(mine.reshape(blocks * per, *v.shape[1:]))
+
+        buffer_data = {k: relaid(v) for k, v in data.items()}
+        ptr, size = ptr // local * per, size // local * per
+        seq = np.asarray(disk["ep_ring_seq"])
+        filled = np.flatnonzero(seq >= 0)
+        newest = filled[np.argsort(seq[filled], kind="stable")][-world * ring_size:]
+        ring_rows = newest[rank * ring_size:(rank + 1) * ring_size]
+        ring_ptr = np.array([len(ring_rows) % ring_size], np.asarray(disk["ep_ring_ptr"]).dtype)
+    out["buffer"] = dict(disk["buffer"], data=buffer_data, ptr=np.int32(ptr), size=np.int32(size))
+    for name in JAX_RING_LEAVES:
+        x = disk.get(name)
+        if x is None:
+            continue
+        empty = np.full((ring_size, *np.shape(x)[1:]), -1 if name == "ep_ring_seq" else 0,
+                        np.asarray(x).dtype)
+        empty[:len(ring_rows)] = np.asarray(x)[ring_rows]
+        out[name] = empty
+    out["ep_ring_ptr"] = ring_ptr
+    return out

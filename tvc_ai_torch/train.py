@@ -40,7 +40,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="YAML config path (default: the package's default.yaml)")
     parser.add_argument("--debug", action="store_true", help="small fast run")
     parser.add_argument("--resume", type=str, default=None,
-                        help="checkpoint directory to resume from (ensemble routes: a file)")
+                        help="checkpoint to resume from: a manager root (its latest step) or "
+                             "one step directory, of this package (at the world that wrote it) "
+                             "or of the JAX package's orbax (at any world its env batch divides "
+                             "over); merged into the fresh carry as the reference merges. The "
+                             "ensemble routes take an ensemble_final.pt or .msgpack file")
     parser.add_argument("--output-dir", type=str, default=None)
     add_device_flags(parser)
     parser.add_argument("overrides", nargs="*", help="dotted config overrides: a.b.c=value")

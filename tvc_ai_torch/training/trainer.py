@@ -17,14 +17,17 @@ data parallel over several processes (``parallel.mesh``):
 - checkpoints are ``utils.checkpoint`` (best, best-nominal, periodic, final,
   and a recovery save on an exception) with a real ``resume``, which also
   takes the JAX package's orbax checkpoints (``utils.orbax_read``, then
-  ``convert.train_carry_from_numpy``; at world 1 only).
+  ``convert.train_carry_from_numpy``) at any world their env batch divides
+  over; both kinds are merged into the fresh carry as the reference merges
+  (``utils.checkpoint.merge_state``).
 
 One ``torch.Generator`` on the device, seeded from ``globals.seed``, stands
 in for the reference's ``self.key``: it seeds the carry and draws the
 evaluations and the interventions; the carry keeps its own generator for the
 iteration. Both generators' states are checkpointed, so a resumed run
 continues exactly. A JAX checkpoint holds JAX keys instead, which are
-dropped: resuming one seeds both generators from ``globals.seed``.
+dropped: resuming one seeds the trainer's generator from ``globals.seed`` and
+the carry's from ``mesh.rank_seed(globals.seed, rank)``.
 
 The host reads the device once per iteration (the metrics, ``summarize``,
 the episode ring), never per step. Each ``train_iteration`` stage ends in a
@@ -56,7 +59,9 @@ another branch and hang in the next collective:
 - the trainer generator is seeded alike on every rank, so the primacy reset
   draws alike; the dormant check probes with rank 0's observations;
 - rank 0 logs; every rank writes its shard of each checkpoint
-  (``utils.checkpoint``), and a resume needs the same world size.
+  (``utils.checkpoint``), and a resume of one needs the same world size;
+  every rank reads a JAX orbax checkpoint whole and takes its own part
+  (``mesh.shard_jax_carry``).
 
 ``training.demo_seeding`` and ``training.warm_start_actor`` are
 single-device, as in the reference (``ValueError`` at a world above 1).
@@ -91,7 +96,13 @@ from tvc_ai_torch.training.stability import (
     TrainingStabilityManager,
     reinit_dormant_units,
 )
-from tvc_ai_torch.utils.checkpoint import CheckpointManager, load_state, save_json
+from tvc_ai_torch.utils.checkpoint import (
+    CheckpointManager,
+    load_state,
+    merge_state,
+    save_json,
+    state_of,
+)
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 from tvc_ai_torch.utils.logging import SilentLogger, TrainingLogger, make_output_dir
 from tvc_ai_torch.utils.orbax_read import OrbaxCheckpoints
@@ -404,21 +415,26 @@ class Trainer:
     def _resume(self, resume_dir) -> None:
         """Resume from a manager root (its latest step) or one step directory
         (exactly that step), of the port or of the JAX package's orbax.
-        Field-tolerant: a field the checkpoint lacks keeps the fresh carry's
-        value. Tensor shapes follow the checkpoint (its env batch and replay
-        capacity), not the new config."""
+
+        The checkpoint is merged into the fresh carry at every depth, as the
+        reference's ``fill`` merges (``utils.checkpoint.merge_state``): a
+        field the checkpoint lacks or holds as None keeps the fresh carry's
+        value, and a field the config turns off stays off. Tensor shapes
+        follow the checkpoint (its env batch and replay capacity), not the
+        new config. The port's own checkpoint resumes at the world that wrote
+        it; a JAX one at any world its env batch divides over
+        (``_carry_from_orbax``), every rank reading it whole."""
         mngr, step = CheckpointManager.locate(resume_dir)
         if isinstance(mngr, OrbaxCheckpoints):
-            if self.world > 1:
-                raise ValueError(
-                    f"{mngr.directory / str(step)} is an orbax checkpoint of the JAX package; "
-                    f"resuming one runs at world 1, not {self.world}")
             self.carry = self._carry_from_orbax(mngr.read(step))
             self.generator.manual_seed(self.cfg.globals.seed)
             host = mngr.host(step)
         else:
             state, host = mngr.restore(step, self.device, self.rank, self.world)
-            self.carry = load_state(self.carry, state["carry"])
+            # an EMA actor the checkpoint lacks is the fresh carry's: a copy of
+            # the freshly initialised actor, not of the restored one, as the
+            # reference's fill keeps it
+            self.carry = merge_state(self.carry, state["carry"])
             if "generator" in state:
                 load_state(self.generator, state["generator"])
         self.iteration = int(host.get("iteration", 0))
@@ -455,32 +471,34 @@ class Trainer:
         )
 
     def _carry_from_orbax(self, disk: dict) -> loop_mod.TrainCarry:
-        """The carry of a JAX ``TrainCarry`` read from orbax, through
-        ``convert.train_carry_from_numpy``, as the reference's ``fill`` merges
-        it: a field the checkpoint lacks or holds as None (and an
-        ``env_states.prev_imu`` it lacks) keeps the fresh carry's value; a
-        field the config turns off stays off. The carry's generator is seeded
-        from ``globals.seed``."""
+        """This rank's carry from a JAX ``TrainCarry`` read from orbax: laid
+        out for the rank (``mesh.shard_jax_carry``: a checkpoint written by n
+        devices is the rank's shard at world n and is re-laid at any other
+        world), carried across by ``convert.train_carry_from_numpy`` and
+        merged into the fresh carry by ``merge_state``, as the port's own
+        checkpoints are. A field the fresh carry holds as None is not
+        converted, since the merge drops it. The JAX keys are dropped: the
+        carry's generator is seeded with ``mesh.rank_seed(globals.seed,
+        rank)``, as a fresh run's is at this world."""
         fresh = self.carry
         names = [f.name for f in dataclasses.fields(fresh)
                  if f.name not in ("generator", "env_steps_host")]
-        taken = {n for n in names
-                 if disk.get(n) is not None and getattr(fresh, n) is not None}
-        missing = {"env_states", "agent", "buffer"} - taken
+        missing = {"env_states", "agent", "buffer"} - {n for n in names if disk.get(n) is not None}
         if missing:
             raise ValueError(f"the orbax carry lacks {sorted(missing)}")
-        full = {n: disk[n] if n in taken else None for n in names}
-        for n in names:
-            value = getattr(fresh, n)
-            if n not in taken and isinstance(value, torch.Tensor):
-                full[n] = value.cpu().numpy()
-        carry = convert.train_carry_from_numpy(full, self.sac_cfg, self.loop_cfg, self.device,
-                                               seed=self.cfg.globals.seed)
-        kept = {n: getattr(fresh, n) for n in names if n not in taken}
-        if carry.env_states.prev_imu is None and fresh.env_states.prev_imu is not None:
-            kept["env_states"] = dataclasses.replace(carry.env_states,
-                                                     prev_imu=fresh.env_states.prev_imu)
-        return dataclasses.replace(carry, **kept)
+        disk = mesh.shard_jax_carry(disk, mesh.jax_carry_shards(disk), self.world, self.rank,
+                                    self.loop_cfg.num_envs, self.loop_cfg.episode_ring_size)
+        lacking = {n for n in names if disk.get(n) is None}
+        full = {n: None if getattr(fresh, n) is None else disk.get(n) for n in names}
+        for n in lacking:   # the conversion needs every counter: the fresh one stands in
+            if isinstance(getattr(fresh, n), torch.Tensor):
+                full[n] = getattr(fresh, n).cpu().numpy()
+        carry = convert.train_carry_from_numpy(
+            full, self.sac_cfg, self.loop_cfg, self.device,
+            seed=mesh.rank_seed(self.cfg.globals.seed, self.rank), ema_from_state=True)
+        state = state_of(carry)
+        state.update({n: None for n in lacking})
+        return merge_state(fresh, state)
 
     @property
     def env_steps(self) -> int:

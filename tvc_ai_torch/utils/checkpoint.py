@@ -26,13 +26,17 @@ array at any layout; the port's shards are the ranks' own).
 ``CheckpointManager.locate`` also takes the JAX package's orbax checkpoints
 (a manager root or one step directory): it hands them to
 ``utils.orbax_read.OrbaxCheckpoints``, which reads them as numpy trees in the
-JAX package's own layout.
+JAX package's own layout; ``parallel.mesh.shard_jax_carry`` lays one out for
+a rank at any world.
 
 ``state_of`` turns a tree of dataclasses, dicts, lists, tensors, modules and
 generators into plain nested dicts and lists of tensors (modules by their
 ``state_dict``, generators by ``get_state()``); ``load_state`` puts such a
 state back into a tree of the same kind, field by field, keeping the
-target's value for any field the checkpoint lacks.
+target's value for any field the checkpoint lacks. ``merge_state`` is the
+trainer's resume: the same, merged at every depth as the reference's
+``Trainer._resume`` merges (its ``fill``), so that a resume may turn an
+optional state (the EMA actor, ICM, RND, the high level) on or off.
 """
 
 from __future__ import annotations
@@ -79,11 +83,18 @@ def state_of(obj: Any) -> Any:
     return obj
 
 
-def load_state(target: Any, state: Any) -> Any:
+def load_state(target: Any, state: Any, merge: bool = False) -> Any:
     """``target`` with ``state`` (from ``state_of``) put back: modules and
     generators in place, tensors replaced by the checkpoint's (whose shapes
-    win), dataclasses and dicts field by field."""
-    if state is None:
+    win), dataclasses and dicts field by field. A None in the checkpoint
+    gives None, and where ``target`` is None the checkpoint's value comes
+    back as it is; ``merge=True`` is ``merge_state``'s rule instead."""
+    if merge:
+        if state is None:
+            return target
+        if target is None:
+            return None
+    elif state is None:
         return None
     if isinstance(target, torch.nn.Module):
         target.load_state_dict(state[_MODULE])
@@ -95,16 +106,31 @@ def load_state(target: Any, state: Any) -> Any:
         return state.to(target.device)
     if dataclasses.is_dataclass(target):
         return dataclasses.replace(target, **{
-            f.name: load_state(getattr(target, f.name), state[f.name])
+            f.name: load_state(getattr(target, f.name), state[f.name], merge)
             for f in dataclasses.fields(target) if f.name in state
         })
     if isinstance(target, dict):
+        if merge:   # the target's keys, as ``fill`` keeps them
+            return {k: load_state(v, state.get(k), True) for k, v in target.items()}
         return {k: load_state(target.get(k), v) for k, v in state.items()}
     if isinstance(target, (list, tuple)):
         if len(target) != len(state):
             raise ValueError(f"checkpoint holds {len(state)} entries, want {len(target)}")
-        return type(target)(load_state(t, s) for t, s in zip(target, state))
+        return type(target)(load_state(t, s, merge) for t, s in zip(target, state))
     return state
+
+
+def merge_state(target: Any, state: Any) -> Any:
+    """``target`` (a fresh carry) with a checkpoint's ``state`` merged in at
+    every depth, as the reference's ``Trainer._resume`` merges (its
+    ``fill``): where the checkpoint holds None or lacks a field, the
+    target's value stays; where the target holds None (an option the config
+    turns off), it stays None and the checkpoint's value is dropped. The
+    reference keeps that value instead, but never reads it: its EMA, ICM,
+    RND and high-level code is gated on the config. A shape the config
+    changes (a width, ``history_len``) is no merge: a module's
+    ``load_state_dict`` refuses it."""
+    return load_state(target, state, merge=True)
 
 
 def flat_state(obj: Any) -> dict[str, Any]:
