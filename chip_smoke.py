@@ -254,6 +254,19 @@ global step blocks (held against the explicit permutation of the decoded
 rows); and trains each resume one 2-step iteration with its eval round
 through K1, printing the launches of each rank and the phase's seconds.
 
+Phase [23] runs the reference's user tools through the port:
+``python -m tvc_ai_torch.verify_installation`` (``main([])``: exit 0, every
+required line ``[ok  ]``, K1 built and held against the plain integrator at
+the flight bar among them) and ``python -m tvc_ai_torch.benchmark`` at the
+reference's sizes (``tests/benchmark.py``: a single env 1,000 steps at N = 1,
+4096 envs x 128 steps x 4 calls, inference, 500 SAC updates, a 20-iteration
+convergence run), with its output in the scratch directory. It holds every
+key of the reference's result set (the psutil ones where psutil imports),
+finite positive rates and 20 finite convergence rewards, prints the
+results, ``torch.cuda.max_memory_allocated`` over a 1,000,000-row replay
+beside its reckoned 96 MB, and the K1 launches of each path (the single env
+1,001, the batched env 640, the convergence run 640, the check at least 2).
+
 Output: progress lines; the card's name and power limit as nvidia-smi gives
 them; a ``{"kernels": [...]}`` JSON line (with ``floor_ms``, ``host_us``,
 K1's time and launch floor at N = 1, 2, 20, 50, the eval step's ms and the
@@ -299,7 +312,8 @@ from tvc_ai_torch.env import randomization, rocket_env
 from tvc_ai_torch.env.types import EnvParams, RandomizationConfig, obs_dim
 from tvc_ai_torch.env.single import RocketConfig
 from tvc_ai_torch.eval.evaluate import _suite_env_params, load_agent_state, run_all_suites
-from tvc_ai_torch import dagger_distill, pilot_eval, pybullet_goldens, tune_hyperparameters
+from tvc_ai_torch import (benchmark as ref_suite, dagger_distill, pilot_eval, pybullet_goldens,
+                          tune_hyperparameters, verify_installation)
 from tvc_ai_torch.eval import pybullet_parity
 from tvc_ai_torch.eval.rollout import (
     EvalDraws,
@@ -4363,6 +4377,105 @@ def jax_orbax_mesh_on_card(scratch: Path, dev) -> dict:
     return launches
 
 
+# tests/benchmark.py's result keys; the memory ones only where psutil imports
+REF_SUITE_KEYS = ("timestamp", "env_steps_per_sec_single", "env_steps_per_sec_batched4096",
+                  "inference_per_sec_deterministic", "inference_per_sec_stochastic",
+                  "inference_per_sec_batched4096", "train_steps_per_sec",
+                  "convergence_wallclock_sec", "convergence_rewards", "convergence_iteration")
+REF_PSUTIL_KEYS = ("memory_rss_mb_baseline", "memory_rss_mb_with_buffer", "hbm_bytes_in_use")
+# the suite's paths through K1 at the reference's sizes: the single env's
+# warm-up + 1,000 steps; (1 warm-up + 4 timed calls) x 128 steps; 20 x 32 steps
+REF_SUITE_LAUNCHES = {"single_env_steps": ("ref_bench_single", 1001),
+                      "batched_env_steps": ("ref_bench_batched", 640),
+                      "bench_convergence": ("ref_bench_convergence", 640)}
+REF_REPLAY_ROWS = 1_000_000
+
+
+def reference_tools_on_card(scratch: Path, dev) -> dict:
+    """[23]: the reference's installation check and performance suite through
+    the port's modules on the card. ``verify_installation.main([])`` must exit
+    0 with every required line ``[ok  ]`` (K1's among them);
+    ``benchmark.main`` runs at the reference's sizes, each of its env paths
+    wrapped to count its K1 launches, and its results must hold every key of
+    the reference's set (the psutil ones where psutil imports), finite
+    positive rates and 20 finite convergence rewards. Then the CUDA
+    allocator's peak over a 1,000,000-row replay against its reckoned bytes.
+    Returns the K1 launches of each path."""
+    t0 = time.perf_counter()
+    k1.step_kernel.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify_installation.main([])
+    launches = {"ref_install_check": k1.step_kernel.launches}
+    lines = out.getvalue().splitlines()
+    for line in filter(None, lines):
+        log(f"[23] install check: {line}")
+    assert rc == 0, f"verify_installation exited {rc}"
+    assert not [line for line in lines if line.startswith("[FAIL]")], lines
+    for name in ("torch device", "K1 build + launch", "rocket env step"):
+        assert any(line.startswith(f"[ok  ] {name}: ") for line in lines), name
+    assert launches["ref_install_check"] >= 2, launches
+    install_s = time.perf_counter() - t0
+
+    originals = {name: getattr(ref_suite, name) for name in REF_SUITE_LAUNCHES}
+
+    def counting(name, fn):
+        def run(*args, **kwargs):
+            k1.step_kernel.launches = 0
+            fn(*args, **kwargs)
+            launches[REF_SUITE_LAUNCHES[name][0]] = k1.step_kernel.launches
+        return run
+
+    path = scratch / "benchmark_results.json"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        for name, fn in originals.items():
+            setattr(ref_suite, name, counting(name, fn))
+        with contextlib.redirect_stdout(out):
+            rc = ref_suite.main(["--out", str(path)])
+    finally:
+        for name, fn in originals.items():
+            setattr(ref_suite, name, fn)
+    suite_s = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"[23] suite: {line}")
+    assert rc == 0, f"benchmark exited {rc}"
+    results = json.loads(path.read_text())
+    log(f"[23] results: {json.dumps(results)}")
+    want = set(REF_SUITE_KEYS) | (set(REF_PSUTIL_KEYS) if importlib.util.find_spec("psutil")
+                                  else set())
+    assert want <= set(results), sorted(want - set(results))
+    rates = {k: v for k, v in results.items()
+             if "_per_sec" in k or k == "convergence_wallclock_sec"}
+    assert all(math.isfinite(v) and v > 0 for v in rates.values()), rates
+    rewards = results["convergence_rewards"]
+    assert len(rewards) == 20 and all(map(math.isfinite, rewards)), rewards
+    assert 3 <= results["convergence_iteration"] <= 20, results["convergence_iteration"]
+    for name, count in REF_SUITE_LAUNCHES.values():
+        assert launches[name] == count, (name, launches[name], count)
+
+    # the replay's device bytes, reckoned against the allocator's peak
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    example = loop.example_transition(loop.TrainLoopConfig())
+    ring = replay.ReplayBuffer.create(REF_REPLAY_ROWS, example, dev)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    floats = sum(t.numel() for t in example.values())
+    reckoned = REF_REPLAY_ROWS * floats * 4
+    log(f"[23] a {REF_REPLAY_ROWS:,}-row replay: torch.cuda.max_memory_allocated {peak} B, "
+        f"{peak - before} B over the {before} B before it; reckoned {REF_REPLAY_ROWS:,} x "
+        f"{floats} float32 = {reckoned} B")
+    assert reckoned <= peak - before < reckoned + 2**20, (peak - before, reckoned)
+    del ring
+    log(f"[23] install check {install_s:.2f} s, suite {suite_s:.2f} s; K1 launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches
+
+
 def k1_below_one_block(gen, dev, params: RocketParams, errs: list) -> dict:
     """[9a]: K1 against its plain version below one block, at N = 1 (the
     single-env path of [17], in contact too), 2, 20 and 50, each N's time
@@ -5013,6 +5126,11 @@ def main() -> int:
         # at world 1, each then trained one iteration with its eval round
         phase("[22]")
         ensemble_launches.update(jax_orbax_mesh_on_card(scratch, dev))
+
+        # ---- 23. the reference's installation check and performance suite
+        # through the port on the card, at the reference's sizes
+        phase("[23]")
+        ensemble_launches.update(reference_tools_on_card(scratch, dev))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"[t] seconds by phase: {phase_seconds()}")

@@ -4,8 +4,10 @@ and the card's eval path integrates only through K1."""
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import pkgutil
 import subprocess
 import sys
@@ -69,7 +71,7 @@ def test_every_module_imports_without_jax():
             "tvc_ai_torch.training.trainer_ensemble", *EXTENSION_MODULES,
             *EXPORT_MODULES, *PARALLEL_DEMO_MODULES, *DISTILL_MODULES,
             *SINGLE_ENV_MODULES, *REMNANT_MODULES, *ARTIFACT_MODULES,
-            *ORBAX_MODULES} <= set(MODULES)
+            *ORBAX_MODULES, *REFERENCE_TOOL_MODULES} <= set(MODULES)
 
 
 # what no module of the port imports: the JAX package and its stack, and the
@@ -120,11 +122,14 @@ ARTIFACT_MODULES = ["tvc_ai_torch.utils.flax_msgpack"]
 # decoded here: none of orbax, tensorstore or zstandard is on the card's host)
 ORBAX_MODULES = ["tvc_ai_torch.utils.zstd", "tvc_ai_torch.utils.ocdbt",
                  "tvc_ai_torch.utils.orbax_read"]
+# the reference's installation check, performance suite and test runner
+REFERENCE_TOOL_MODULES = ["tvc_ai_torch.verify_installation", "tvc_ai_torch.benchmark",
+                          "tvc_ai_torch.run_tests"]
 
 
 @pytest.mark.parametrize("name", EXTENSION_MODULES + EXPORT_MODULES + PARALLEL_DEMO_MODULES
                          + DISTILL_MODULES + SINGLE_ENV_MODULES + REMNANT_MODULES
-                         + ARTIFACT_MODULES + ORBAX_MODULES)
+                         + ARTIFACT_MODULES + ORBAX_MODULES + REFERENCE_TOOL_MODULES)
 def test_extension_module_imports_no_jax(name):
     tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
     roots = {alias.name.split(".")[0] for node in ast.walk(tree)
@@ -890,3 +895,87 @@ def test_remnant_paths_reach_physics_only_through_k1(monkeypatch):
 
     hpo.make_sac_objective(total_steps=64, num_envs=1, eval_episodes=2, device="cpu")(Trial())
     assert calls[:64] == [1] * 64 and set(calls[64:]) == {2}
+
+
+@pytest.mark.parametrize("name", REFERENCE_TOOL_MODULES)
+def test_reference_tools_import_no_pre_port_file(name):
+    """The installation check, the suite and the runner import nothing of
+    the repo outside the port: not the JAX build's scripts they mirror."""
+    tree = ast.parse(Path(importlib.util.find_spec(name).origin).read_text())
+    roots = {alias.name.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for alias in node.names}
+    roots |= {node.module.split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    pre_port = {p.stem for p in ROOT.glob("*.py")} | {"tests", "scripts", "native"}
+    assert not roots & pre_port, (name, roots & pre_port)
+
+
+REFERENCE_TOOL_ENTRIES = ["verify_installation", "benchmark_main", "bench_env_steps",
+                          "bench_inference", "bench_training", "bench_memory",
+                          "bench_convergence"]
+
+
+@pytest.mark.parametrize("entry", REFERENCE_TOOL_ENTRIES)
+def test_reference_tools_default_to_cuda(entry, tmp_path):
+    """``python -m tvc_ai_torch.verify_installation`` fails on the torch
+    device where there is no CUDA device; the suite and each of its
+    functions raise there, before they write anything."""
+    from tvc_ai_torch import benchmark, verify_installation
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; chip_smoke.py [23] runs these there")
+    out = tmp_path / "results.json"
+    if entry == "verify_installation":
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert verify_installation.main([]) == 1
+        assert "[FAIL] torch device: device 'cuda' requested" in buf.getvalue()
+        return
+    call = (lambda: benchmark.main(["--out", str(out)])) if entry == "benchmark_main" else (
+        lambda: getattr(benchmark, entry)({}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert not out.exists()
+
+
+def test_reference_tool_paths_reach_physics_only_through_k1(monkeypatch):
+    """The installation check's env step, the suite's single env (N = 1),
+    batched env and convergence run integrate through K1's wrapper, never
+    the plain integrator on their own, and every input K1 gets passes its
+    check (dtype, shape, contiguity, 16-byte alignment)."""
+    from tvc_ai_torch import benchmark, verify_installation
+    from tvc_ai_torch.ops import step_kernel as k1
+    from tvc_ai_torch.physics import integrator
+
+    calls, inside = [], []
+    original, plain_step = k1.step_kernel, integrator.step
+
+    def wrapper(state, control, params, *args, **kwargs):
+        calls.append(state.pos.shape[0])
+        inside.append(True)
+        try:
+            return original(state, control, params, *args, **kwargs)
+        finally:
+            inside.pop()
+
+    def plain(*args, **kwargs):
+        if not inside:
+            raise AssertionError("a path called the plain integrator outside K1's wrapper")
+        return plain_step(*args, **kwargs)
+
+    monkeypatch.setattr(k1, "step_kernel", wrapper)
+    monkeypatch.setattr(integrator, "step", plain)
+    monkeypatch.setattr(rocket_env, "step_kernel", wrapper)
+    monkeypatch.setattr(rocket_env, "physics_step", plain)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert verify_installation.main(["--cpu"]) == 0
+    assert calls == [1]
+    calls.clear()
+    # the single env is never reset: it crashes within ~40 steps and steps on, grounded
+    benchmark.bench_env_steps({}, "cpu", single_steps=60, num_envs=4, steps=2, calls=1)
+    assert calls == [1] * 61 + [4] * 4
+    calls.clear()
+    benchmark.bench_convergence({}, "cpu", iterations=2, num_envs=4, rollout_steps=2,
+                                hidden_dims=(8, 8), batch_size=4, buffer_size=16,
+                                learning_starts=8)
+    assert calls == [4] * 4
