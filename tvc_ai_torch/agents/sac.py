@@ -42,6 +42,7 @@ from tvc_ai_torch.models import distributions as dist
 from tvc_ai_torch.models.mlp import GaussianActor, TwinQ
 from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.parallel.mesh import sum_grads_
+from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -216,11 +217,13 @@ def select_action(
     ``n_act`` (N, action_dim) is the standard-normal exploration noise; it is
     drawn from ``generator`` when not given.
     """
-    mean, log_std = actor(obs)
-    if deterministic:
-        return dist.deterministic_action(mean)
-    action, _ = dist.sample_and_log_prob(mean, log_std, n_act, generator)
-    return action
+    with profiling.span(profiling.ACT_ACTOR):
+        mean, log_std = actor(obs)
+    with profiling.span(profiling.ACT_SAMPLE):
+        if deterministic:
+            return dist.deterministic_action(mean)
+        action, _ = dist.sample_and_log_prob(mean, log_std, n_act, generator)
+        return action
 
 
 def _clipped_adam(params: list[torch.Tensor], grads, state: optim.AdamState, lr: float,

@@ -56,6 +56,7 @@ from tvc_ai_torch.physics import quaternion as quat
 from tvc_ai_torch.physics.integrator import ThrustControl
 from tvc_ai_torch.physics.integrator import step as physics_step
 from tvc_ai_torch.physics.types import RigidBodyState
+from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 from tvc_ai_torch.utils.tree import tree_map
 
@@ -277,108 +278,116 @@ def _post_physics(
 ) -> tuple[EnvState, StepOutput]:
     """Everything after the rigid-body integrate: observation, FSM, reward,
     termination."""
-    step_count = state.step_count + 1
-    altitude = body.pos[:, 2]
-    tilt = quat.tilt_angle(body.quat)
-    ang_mag = torch.linalg.vector_norm(body.omega, dim=-1)
-    horiz_vel = torch.linalg.vector_norm(body.vel[:, :2], dim=-1)
-    vert_vel = torch.abs(body.vel[:, 2])
-    crashed = altitude < params.termination.crash_altitude
+    with profiling.span(profiling.ENV_STATUS):
+        step_count = state.step_count + 1
+        altitude = body.pos[:, 2]
+        tilt = quat.tilt_angle(body.quat)
+        ang_mag = torch.linalg.vector_norm(body.omega, dim=-1)
+        horiz_vel = torch.linalg.vector_norm(body.vel[:, :2], dim=-1)
+        vert_vel = torch.abs(body.vel[:, 2])
+        crashed = altitude < params.termination.crash_altitude
 
-    # observation with the PRE-update phase
-    obs, imu = _observe(body, fuel, state.phase, step_count, params,
-                        state.dr.sensor_noise_std, state.dr.progress_rate, n_imu,
-                        prev_imu=state.prev_imu, u_drop=u_drop)
-    # obs[:, :2] is the presented qx, qy reading (after noise and dropout)
-    trim = state.trim
-    if params.trim_obs_enabled:
-        d = params.trim_obs_decay
-        if params.trim_obs_integral:
-            tilt_i = torch.clamp(
-                trim[:, :2] + (1.0 - d) * obs[:, :2],
-                -params.trim_obs_clip, params.trim_obs_clip,
-            )
-            trim = torch.cat([tilt_i, d * trim[:, 2:] + (1.0 - d) * action], dim=-1)
-        else:
-            trim = d * trim + (1.0 - d) * torch.cat([obs[:, :2], action], dim=-1)
-        obs = _append_trim(obs, trim, params)
-    obs = _append_drift(obs, body, params)
-    obs = _append_action(obs, action, params)
+    with profiling.span(profiling.ENV_OBSERVE):
+        # observation with the PRE-update phase
+        obs, imu = _observe(body, fuel, state.phase, step_count, params,
+                            state.dr.sensor_noise_std, state.dr.progress_rate, n_imu,
+                            prev_imu=state.prev_imu, u_drop=u_drop)
+        # obs[:, :2] is the presented qx, qy reading (after noise and dropout)
+        trim = state.trim
+        if params.trim_obs_enabled:
+            d = params.trim_obs_decay
+            if params.trim_obs_integral:
+                tilt_i = torch.clamp(
+                    trim[:, :2] + (1.0 - d) * obs[:, :2],
+                    -params.trim_obs_clip, params.trim_obs_clip,
+                )
+                trim = torch.cat([tilt_i, d * trim[:, 2:] + (1.0 - d) * action], dim=-1)
+            else:
+                trim = d * trim + (1.0 - d) * torch.cat([obs[:, :2], action], dim=-1)
+            obs = _append_trim(obs, trim, params)
+        obs = _append_drift(obs, body, params)
+        obs = _append_action(obs, action, params)
 
-    new_phase, completed = mission_mod.update_phase(
-        state.phase, altitude, tilt, fuel, ang_mag, params.success
-    )
-    success_count, window_success = mission_mod.update_success_window(
-        state.success_count, altitude, tilt, ang_mag, horiz_vel, vert_vel,
-        params.success,
-    )
-    mission_success = state.mission_success | completed | window_success
+    with profiling.span(profiling.ENV_STATUS):
+        new_phase, completed = mission_mod.update_phase(
+            state.phase, altitude, tilt, fuel, ang_mag, params.success
+        )
+        success_count, window_success = mission_mod.update_success_window(
+            state.success_count, altitude, tilt, ang_mag, horiz_vel, vert_vel,
+            params.success,
+        )
+        mission_success = state.mission_success | completed | window_success
 
-    # reward with the PRE-update phase and success flag; with equilibrium-
-    # relative shaping its tilt is measured from the episode's hover axis
-    # (gimbal -> CG line world-vertical); the FSM and termination keep the
-    # true tilt
-    rcfg = params.reward
-    reward_tilt = tilt
-    if rcfg.equilibrium_relative_shaping:
-        to_cg = state.dr.cg_offset - _constant(params.rocket.thrust_offset, body.quat.device)
-        bhat = to_cg / torch.linalg.vector_norm(to_cg, dim=-1, keepdim=True)
-        reward_tilt = torch.arccos(torch.clamp(quat.rotate(body.quat, bhat)[:, 2], -1.0, 1.0))
-    total_reward, reward_window, reward_window_len, components = reward_mod.compute_reward(
-        rcfg,
-        altitude=altitude,
-        tilt=reward_tilt,
-        angular_velocity_mag=ang_mag,
-        fuel=fuel,
-        crashed=crashed,
-        mission_successful=state.mission_success,
-        phase=state.phase,
-        action=action,
-        prev_action=state.prev_action,
-        has_prev_action=state.has_prev_action,
-        reward_window=state.reward_window,
-        reward_window_len=state.reward_window_len,
-    )
-    if rcfg.survival_normalized_success:
-        # a one-time payout on the first success step, after the per-step
-        # clip: the mean of the window this step filled (its reward
-        # included) times the steps left
-        first = (completed | window_success) & ~state.mission_success
-        fill = torch.clamp(reward_window_len.to(torch.float32), 1.0,
-                           float(rcfg.variance_window))
-        mean = reward_window.sum(dim=-1) / fill
-        remaining = torch.clamp(params.max_episode_steps - step_count, min=0).to(torch.float32)
-        total_reward = total_reward + torch.where(
-            first, torch.clamp(mean, min=0.0) * remaining * rcfg.survival_success_scale, 0.0)
+    with profiling.span(profiling.ENV_REWARD):
+        # reward with the PRE-update phase and success flag; with equilibrium-
+        # relative shaping its tilt is measured from the episode's hover axis
+        # (gimbal -> CG line world-vertical); the FSM and termination keep the
+        # true tilt
+        rcfg = params.reward
+        reward_tilt = tilt
+        if rcfg.equilibrium_relative_shaping:
+            to_cg = state.dr.cg_offset - _constant(params.rocket.thrust_offset, body.quat.device)
+            bhat = to_cg / torch.linalg.vector_norm(to_cg, dim=-1, keepdim=True)
+            reward_tilt = torch.arccos(
+                torch.clamp(quat.rotate(body.quat, bhat)[:, 2], -1.0, 1.0))
+        total_reward, reward_window, reward_window_len, components = reward_mod.compute_reward(
+            rcfg,
+            altitude=altitude,
+            tilt=reward_tilt,
+            angular_velocity_mag=ang_mag,
+            fuel=fuel,
+            crashed=crashed,
+            mission_successful=state.mission_success,
+            phase=state.phase,
+            action=action,
+            prev_action=state.prev_action,
+            has_prev_action=state.has_prev_action,
+            reward_window=state.reward_window,
+            reward_window_len=state.reward_window_len,
+        )
+        if rcfg.survival_normalized_success:
+            # a one-time payout on the first success step, after the per-step
+            # clip: the mean of the window this step filled (its reward
+            # included) times the steps left
+            first = (completed | window_success) & ~state.mission_success
+            fill = torch.clamp(reward_window_len.to(torch.float32), 1.0,
+                               float(rcfg.variance_window))
+            mean = reward_window.sum(dim=-1) / fill
+            remaining = torch.clamp(params.max_episode_steps - step_count,
+                                    min=0).to(torch.float32)
+            total_reward = total_reward + torch.where(
+                first, torch.clamp(mean, min=0.0) * remaining * rcfg.survival_success_scale,
+                0.0)
 
-    # termination with the POST-update success flag
-    term = params.termination
-    horiz_dist = torch.linalg.vector_norm(body.pos[:, :2], dim=-1)
-    terminated = (
-        crashed
-        | (tilt > term.max_tilt)
-        | (altitude > term.max_altitude)
-        | (horiz_dist > term.max_horizontal_distance)
-    )
-    if term.terminate_on_success:
-        terminated = terminated | mission_success
-    truncated = step_count >= params.max_episode_steps
+    with profiling.span(profiling.ENV_STATUS):
+        # termination with the POST-update success flag
+        term = params.termination
+        horiz_dist = torch.linalg.vector_norm(body.pos[:, :2], dim=-1)
+        terminated = (
+            crashed
+            | (tilt > term.max_tilt)
+            | (altitude > term.max_altitude)
+            | (horiz_dist > term.max_horizontal_distance)
+        )
+        if term.terminate_on_success:
+            terminated = terminated | mission_success
+        truncated = step_count >= params.max_episode_steps
 
-    new_state = EnvState(
-        body=body,
-        fuel=fuel,
-        step_count=step_count,
-        phase=new_phase,
-        mission_success=mission_success,
-        success_count=success_count,
-        prev_action=action,
-        has_prev_action=torch.ones_like(state.has_prev_action),
-        reward_window=reward_window,
-        reward_window_len=reward_window_len,
-        trim=trim,
-        dr=state.dr,
-        prev_imu=imu,
-    )
+        new_state = EnvState(
+            body=body,
+            fuel=fuel,
+            step_count=step_count,
+            phase=new_phase,
+            mission_success=mission_success,
+            success_count=success_count,
+            prev_action=action,
+            has_prev_action=torch.ones_like(state.has_prev_action),
+            reward_window=reward_window,
+            reward_window_len=reward_window_len,
+            trim=trim,
+            dr=state.dr,
+            prev_imu=imu,
+        )
     out = StepOutput(
         obs=obs,
         reward=total_reward,
@@ -419,17 +428,19 @@ def _step(state, action, params, integrate, generator, n_imu, u_drop):
     if params.randomization.sensor_dropout_enabled and state.prev_imu is None:
         raise ValueError("sensor dropout is on but the state holds no prev_imu; "
                          "reset it with these parameters")
-    n_imu, u_drop = _step_draws(params, action, generator, n_imu, u_drop)
-    action, gimbal, thrust_active, fuel = _pre_physics(state, action, params)
-    body = integrate(
-        state.body,
-        ThrustControl(gimbal=gimbal, thrust_active=thrust_active),
-        params.rocket,
-        mass=state.dr.mass,
-        thrust_scale=state.dr.thrust_scale,
-        cg_offset=state.dr.cg_offset,
-        wind=state.dr.wind,
-    )
+    with profiling.span(profiling.ENV_PRE):
+        n_imu, u_drop = _step_draws(params, action, generator, n_imu, u_drop)
+        action, gimbal, thrust_active, fuel = _pre_physics(state, action, params)
+    with profiling.span(profiling.ENV_INTEGRATE):
+        body = integrate(
+            state.body,
+            ThrustControl(gimbal=gimbal, thrust_active=thrust_active),
+            params.rocket,
+            mass=state.dr.mass,
+            thrust_scale=state.dr.thrust_scale,
+            cg_offset=state.dr.cg_offset,
+            wind=state.dr.wind,
+        )
     return _post_physics(state, body, action, fuel, params, n_imu, u_drop)
 
 
@@ -452,17 +463,21 @@ def _finish_autoreset(
     generator: torch.Generator | None,
     reset_draws: ResetDraws | None,
 ) -> tuple[EnvState, StepOutput, torch.Tensor]:
-    """Masked in-place reset where the episode ended."""
-    done = out.terminated | out.truncated
-    if reset_draws is None:
-        reset_draws = draw_reset(params, done.shape[0], done.device, generator)
-    reset_state, reset_obs = _reset_from_draws(params, reset_draws)
+    """Masked in-place reset where the episode ended: the reset is built for
+    every row and kept where ``done`` (counted while tracing)."""
+    with profiling.span(profiling.ENV_AUTORESET):
+        done = out.terminated | out.truncated
+        profiling.count(profiling.AUTORESET_KEPT, done)
+        profiling.count(profiling.AUTORESET_BUILT, done.shape[0])
+        if reset_draws is None:
+            reset_draws = draw_reset(params, done.shape[0], done.device, generator)
+        reset_state, reset_obs = _reset_from_draws(params, reset_draws)
 
-    def select(r: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-        return torch.where(done.view(-1, *([1] * (n.dim() - 1))), r, n)
+        def select(r: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+            return torch.where(done.view(-1, *([1] * (n.dim() - 1))), r, n)
 
-    carried = tree_map(select, reset_state, new_state)
-    return carried, out, select(reset_obs, out.obs)
+        carried = tree_map(select, reset_state, new_state)
+        return carried, out, select(reset_obs, out.obs)
 
 
 def step_autoreset(
@@ -490,6 +505,11 @@ def pallas_physics_ok(params: EnvParams) -> bool:
     return not (r.magnus_effect or r.ground_effect or r.gyroscopic)
 
 
+def _integrator(params: EnvParams):
+    """K1 whenever it implements the configured physics, else the plain integrator."""
+    return step_kernel if pallas_physics_ok(params) else physics_step
+
+
 def batched_step(
     states: EnvState,
     actions: torch.Tensor,
@@ -502,8 +522,8 @@ def batched_step(
     ``step`` with the integrate done by K1 whenever ``pallas_physics_ok``.
     The opt-in physics terms K1 does not implement take the plain integrator.
     On CPU tensors K1's wrapper runs its plain version."""
-    integrate = step_kernel if pallas_physics_ok(params) else physics_step
-    return _step(states, actions, params, integrate, generator, n_imu, u_drop)
+    with profiling.span(profiling.ENV):
+        return _step(states, actions, params, _integrator(params), generator, n_imu, u_drop)
 
 
 def batched_step_autoreset(
@@ -520,5 +540,7 @@ def batched_step_autoreset(
     plain integrator for the opt-in terms K1 does not implement. On CPU
     tensors K1's wrapper runs its plain version.
     """
-    new_state, out = batched_step(states, actions, params, generator, n_imu, u_drop)
-    return _finish_autoreset(new_state, out, params, generator, reset_draws)
+    with profiling.span(profiling.ENV):
+        new_state, out = _step(states, actions, params, _integrator(params), generator,
+                               n_imu, u_drop)
+        return _finish_autoreset(new_state, out, params, generator, reset_draws)

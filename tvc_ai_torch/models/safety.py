@@ -23,6 +23,7 @@ from torch import nn
 
 from tvc_ai_torch.env.types import ACTION_DIM, OBS_DIM
 from tvc_ai_torch.models.layers import lecun_dense
+from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -85,9 +86,10 @@ def apply_safety(
     obs: torch.Tensor, action: torch.Tensor, c: SafetyConstraints
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(safe_action, violation_mask): the correction only where violated."""
-    mask = violations(obs, action, c)
-    safe = analytic_safe_action(obs, action, c)
-    return torch.where(mask[..., None], safe, action), mask
+    with profiling.span(profiling.ACT_SAFETY):
+        mask = violations(obs, action, c)
+        safe = analytic_safe_action(obs, action, c)
+        return torch.where(mask[..., None], safe, action), mask
 
 
 class SafetyCorrectionNet(nn.Module):

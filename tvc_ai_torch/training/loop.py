@@ -86,6 +86,7 @@ from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.models.mlp import GaussianActor
 from tvc_ai_torch.models.safety import SafetyConstraints, apply_safety
 from tvc_ai_torch.parallel.mesh import DATA_AXIS, all_gather_host, pmean_, psum_host
+from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 UPDATE_METRICS = ("critic_loss", "actor_loss", "alpha_loss", "alpha", "q1_mean",
@@ -752,9 +753,10 @@ def collect(
     rewards, terminated, truncated = [], [], []
     for t in range(steps):
         d = draws[t] if draws is not None else StepDraws()
-        actions = sac.select_action(actor, obs, d.n_act, generator=generator)
-        if safety is not None:
-            actions, _ = apply_safety(obs, actions, safety)
+        with profiling.span(profiling.ACT):
+            actions = sac.select_action(actor, obs, d.n_act, generator=generator)
+            if safety is not None:
+                actions, _ = apply_safety(obs, actions, safety)
         env_states, out, obs = rocket_env.batched_step_autoreset(
             env_states, actions, env_params,
             generator=generator, n_imu=d.n_imu, reset_draws=d.reset, u_drop=d.u_drop,
