@@ -4,10 +4,12 @@ Counterpart of ``tvc_ai_tpu/models/transformer.py``: ``sinusoidal_encoding``,
 ``SqueezeExcitation``, ``EncoderLayer`` (pre-norm: LayerNorm, multi-head
 self-attention, residual; LayerNorm, Dense, GELU, Dense, residual),
 ``_Head`` (Dense, GELU, LayerNorm per hidden width, then an output Dense),
-``TransformerPolicyNetwork`` (obs → Dense embed + positional encoding →
-encoder layers → last token → LayerNorm → squeeze-excitation → a policy
-head (mean, log_std clamped to [-20, 2]) and a value head) and
-``TransformerActor`` (obs → (mean, log_std), the value dropped).
+``TransformerPolicyNetwork`` (obs → ``encoder_stack``: Dense embed +
+positional encoding → encoder layers; then ``policy_head``: last token →
+LayerNorm → squeeze-excitation → a policy head (mean, log_std clamped to
+[-20, 2]) and a value head) and ``TransformerActor`` (obs → (mean,
+log_std), the value dropped). ``forward`` calls the two module-level parts
+through the module, each inside its profiling span.
 
 The numerics are flax's (``models.layers``): LayerNorm with epsilon 1e-6 and
 the E[x²] − E[x]² variance, the tanh GELU, and ``MultiHeadDotProductAttention``
@@ -44,6 +46,7 @@ from torch import nn
 
 from tvc_ai_torch.models.distributions import clamp_log_std
 from tvc_ai_torch.models.layers import LayerNorm, gelu, lecun_dense, orthogonal_dense
+from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
 
 
@@ -179,15 +182,31 @@ class TransformerPolicyNetwork(nn.Module):
             obs = obs.reshape(batch, sequence_length, -1)
         elif obs.dim() == 2:
             obs = obs[:, None, :]
-        x = self.Dense_0(obs)
-        x = x + self.pe[: x.shape[1]]
-        for i in range(self.num_layers):
-            x = getattr(self, f"EncoderLayer_{i}")(x)
-        x = self.LayerNorm_0(x[:, -1, :])   # last-token pooling
-        if self.use_squeeze_excitation:
-            x = self.SqueezeExcitation_0(x)
-        mean, log_std = self._Head_0(x).split(self.action_dim, dim=-1)
-        value = self._Head_1(x)[..., 0] if with_value else None
+        return policy_head(self, encoder_stack(self, obs), with_value)
+
+
+def encoder_stack(net: TransformerPolicyNetwork, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S, d_model) of tokens (B, S, token_dim): the Dense embedding, the
+    sinusoidal position encoding, the encoder layers."""
+    with profiling.span(profiling.ACT_ACTOR_ENCODER):
+        x = net.Dense_0(tokens)
+        x = x + net.pe[: x.shape[1]]
+        for i in range(net.num_layers):
+            x = getattr(net, f"EncoderLayer_{i}")(x)
+        return x
+
+
+def policy_head(net: TransformerPolicyNetwork, x: torch.Tensor, with_value: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(mean, log_std, value) of the encoded sequence ``x``: the last token,
+    LayerNorm, squeeze-excitation, the policy head (log_std clamped) and,
+    with ``with_value``, the value head."""
+    with profiling.span(profiling.ACT_ACTOR_HEAD):
+        x = net.LayerNorm_0(x[:, -1, :])   # last-token pooling
+        if net.use_squeeze_excitation:
+            x = net.SqueezeExcitation_0(x)
+        mean, log_std = net._Head_0(x).split(net.action_dim, dim=-1)
+        value = net._Head_1(x)[..., 0] if with_value else None
         return mean, clamp_log_std(log_std), value
 
 

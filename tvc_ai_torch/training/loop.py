@@ -85,6 +85,7 @@ from tvc_ai_torch.models import hierarchical as hier_mod
 from tvc_ai_torch.models import rnd as rnd_mod
 from tvc_ai_torch.models.mlp import GaussianActor
 from tvc_ai_torch.models.safety import SafetyConstraints, apply_safety
+from tvc_ai_torch.models.transformer import TransformerActor
 from tvc_ai_torch.parallel.mesh import DATA_AXIS, all_gather_host, pmean_, psum_host
 from tvc_ai_torch.utils import profiling
 from tvc_ai_torch.utils.devices import DEFAULT_DEVICE, resolve_device
@@ -308,6 +309,24 @@ def ring_set(ring: torch.Tensor, slot: torch.Tensor, values: torch.Tensor) -> to
     return padded[:-1]
 
 
+def next_window(window: torch.Tensor | None, out_obs: torch.Tensor, next_obs: torch.Tensor,
+                done: torch.Tensor):
+    """(window, true next policy obs, next policy obs) after one env step.
+
+    With a history window (N, H, obs_dim), the true next obs ``out_obs`` is
+    shifted into it; where ``done``, the whole window is refilled with the
+    fresh episode's first obs ``next_obs``. Both policy obs are the windows
+    flattened to (N, H·obs_dim). Without one (``window`` None, history 1)
+    the two obs pass through and nothing is launched."""
+    if window is None:
+        return window, out_obs, next_obs
+    with profiling.span(profiling.HISTORY):
+        shifted = torch.cat([window[:, 1:], out_obs[:, None, :]], dim=1)
+        fresh = next_obs[:, None, :].expand(-1, window.shape[1], -1)
+        window = torch.where(done[:, None, None], fresh, shifted)
+        return window, shifted.reshape(shifted.shape[0], -1), window.reshape(window.shape[0], -1)
+
+
 def make_train_iteration(
     sac_cfg: sac.SACConfig,
     loop_cfg: TrainLoopConfig,
@@ -383,17 +402,6 @@ def make_train_iteration(
             states, actions, env_params, generator=generator, n_imu=d.n_imu,
             reset_draws=d.reset, u_drop=d.u_drop)
 
-    def next_window(window, out, next_obs, done):
-        """(window, true next policy obs, next policy obs): with history,
-        shift the true next obs into the window; on done, refill the whole
-        window with the fresh episode's first obs."""
-        if history <= 1:
-            return window, out.obs, next_obs
-        shifted = torch.cat([window[:, 1:], out.obs[:, None, :]], dim=1)
-        fresh = next_obs[:, None, :].expand(-1, history, -1)
-        window = torch.where(done[:, None, None], fresh, shifted)
-        return window, shifted.reshape(shifted.shape[0], -1), window.reshape(window.shape[0], -1)
-
     def learn(agent, buffer, demo_buffer, samples, generator):
         """``updates_per_step`` updates, their metrics averaged."""
         if samples and len(samples) != loop_cfg.updates_per_step:
@@ -437,7 +445,7 @@ def make_train_iteration(
 
         done = out.terminated | out.truncated
         obs_window, stacked_next_true, stacked_next_policy = next_window(
-            carry.obs_window, out, next_obs, done)
+            carry.obs_window, out.obs, next_obs, done)
 
         # --- intrinsic rewards; the ICM trains every step, from the
         # parameters that gave this step's reward
@@ -547,7 +555,7 @@ def make_train_iteration(
                 actions, _ = apply_safety(cur_frame, actions, loop_cfg.safety)
             env_states, out, next_obs = batched_step(env_states, actions, env_params, sd, gen)
             window, next_true, next_policy = next_window(
-                window, out, next_obs, out.terminated | out.truncated)
+                window, out.obs, next_obs, out.terminated | out.truncated)
             ys.append((obs, actions, out.reward, next_true, out.terminated, out.truncated,
                        out.mission_success))
             obs = next_policy
@@ -724,14 +732,14 @@ def summarize(carry: TrainCarry, axis_name: str | None = None,
 @dataclasses.dataclass
 class Rollout:
     states: EnvState
-    obs: torch.Tensor          # (N, obs_dim) the policy observation after the last step
+    obs: torch.Tensor          # (N, history_len·obs_dim) policy observation after the last step
     reward: torch.Tensor       # (steps, N)
     terminated: torch.Tensor   # (steps, N)
     truncated: torch.Tensor    # (steps, N)
 
 
 def collect(
-    actor: GaussianActor,
+    actor: GaussianActor | TransformerActor,
     env_states: EnvState,
     obs: torch.Tensor,
     env_params: EnvParams,
@@ -739,28 +747,43 @@ def collect(
     safety: SafetyConstraints | None = SafetyConstraints(),
     generator: torch.Generator | None = None,
     draws: Sequence[StepDraws] | None = None,
+    history_len: int = 1,
 ) -> Rollout:
     """Run ``steps`` act-and-simulate steps for the N envs in ``env_states``
-    (``history_len=1``, nothing learned).
+    (nothing learned).
 
     Each step samples a tanh-Gaussian action, applies the safety projection
     (skipped when ``safety`` is None), then ``batched_step_autoreset`` (the K1
     kernel on CUDA). ``draws`` gives each step's random numbers; otherwise
     they come from ``generator`` on the envs' device.
+
+    With ``history_len`` H > 1, ``obs`` is the window of the last H
+    observations, newest last, flattened to (N, H·obs_dim) as ``init_carry``
+    starts it: the actor sees the window, the safety projection its newest
+    frame, and after each step ``next_window`` shifts the true next
+    observation in, or refills the window with the fresh episode's first
+    observation where the episode ended. The returned ``obs`` is the window,
+    flattened.
     """
     if draws is not None and len(draws) != steps:
         raise ValueError(f"draws holds {len(draws)} steps, want {steps}")
+    window = obs.view(obs.shape[0], history_len, -1) if history_len > 1 else None
     rewards, terminated, truncated = [], [], []
     for t in range(steps):
         d = draws[t] if draws is not None else StepDraws()
         with profiling.span(profiling.ACT):
             actions = sac.select_action(actor, obs, d.n_act, generator=generator)
             if safety is not None:
-                actions, _ = apply_safety(obs, actions, safety)
+                # the newest frame, held by no name: the env step's obs is a view
+                # of its whole output, which a name would keep alive a step longer
+                actions, _ = apply_safety(obs if window is None else window[:, -1], actions,
+                                          safety)
         env_states, out, obs = rocket_env.batched_step_autoreset(
             env_states, actions, env_params,
             generator=generator, n_imu=d.n_imu, reset_draws=d.reset, u_drop=d.u_drop,
         )
+        if window is not None:
+            window, _, obs = next_window(window, out.obs, obs, out.terminated | out.truncated)
         rewards.append(out.reward)
         terminated.append(out.terminated)
         truncated.append(out.truncated)

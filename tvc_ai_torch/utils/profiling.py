@@ -26,8 +26,12 @@ from torch._C._profiler import _RecordFunctionFast
 # the rollout loop's act layer (``training.loop.collect``) and its parts
 ACT = "tvc.act"
 ACT_ACTOR = "tvc.act.actor"          # the actor's forward pass
+ACT_ACTOR_ENCODER = "tvc.act.actor.encoder"  # the transformer's embedding and encoder layers
+ACT_ACTOR_HEAD = "tvc.act.actor.head"        # the transformer's pooling, SE and heads
 ACT_SAMPLE = "tvc.act.sample"        # the tanh-Gaussian sample or the mean action
 ACT_SAFETY = "tvc.act.safety"        # the safety projection
+# the observation-history window's update (``training.loop.next_window``)
+HISTORY = "tvc.history"
 # the batched env step (``env.rocket_env``) and its parts, which tile it
 ENV = "tvc.env"
 ENV_PRE = "tvc.env.pre"              # the step's draws, action conditioning, fuel gate
